@@ -1,0 +1,270 @@
+"""Masked-popcount column sweeps over the packed genome x k-mer bit matrix.
+
+Port of ``grm_tpu/ops/popcount.py``. The matrix is stored as a (W, K)
+``int32`` tensor of packed words (torch has no popcount and no ``uint32``
+right shift on the CPU, so words travel as int32 bit patterns), MSB-first:
+genome ``g`` is bit ``31 - g % 32`` of word row ``g // 32``. The on-disk
+uint64 layout converts with :func:`u64_matrix_to_u32`, word for word as
+``grm_tpu.ops.popcount.u64_matrix_to_u32`` does.
+
+The sweep, for C row-selection masks at once::
+
+    counts[c, k] = sum_w popcount(matrix[w, k] & masks[c, w])
+
+runs as the hand-written CUDA kernel ``csrc/popcount_colsum.cu`` on a CUDA
+tensor, and as its plain PyTorch version (SWAR popcount on int64, column
+block by column block) on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..utils import build_row_mask, minimum_uint_size, unpack_binary_bytes_from_ints
+from . import _build
+
+__all__ = [
+    "BitMatrix",
+    "popcount_colsum",
+    "popcount_colsum_plain",
+    "popcount_colsum_pairs",
+    "popcount_colsum_pairs_plain",
+    "popcount_rows",
+    "masks_to_tensor",
+    "u64_matrix_to_u32",
+]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "grm_popcount_colsum": ([_P, _I, _L, _P, _I, _P, _P], _I),
+    "grm_popcount_colsum_pairs": ([_P, _I, _L, _P, _P, _I, _I, _P, _P], _I),
+}
+_SMEM_WORDS = 12288  # 48 KB of masks per launch: no opt-in attribute needed
+
+
+def u64_matrix_to_u32(m64):
+    """Split a uint64 MSB-first packed matrix into uint32 word rows: row
+    ``w`` of the uint64 matrix becomes rows ``2w`` (high half, genomes
+    ``[64w, 64w+32)``) and ``2w+1`` (low half)."""
+    m64 = np.ascontiguousarray(m64, dtype=np.uint64)
+    out = np.empty((m64.shape[0] * 2,) + m64.shape[1:], dtype=np.uint32)
+    if np.little_endian:
+        halves = m64.view(np.uint32).reshape(m64.shape[0], -1, 2)
+        out[0::2] = halves[..., 1]
+        out[1::2] = halves[..., 0]
+    else:  # pragma: no cover - big-endian hosts
+        out[0::2] = (m64 >> np.uint64(32)).astype(np.uint32)
+        out[1::2] = (m64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return out
+
+
+def masks_to_tensor(masks, device):
+    """uint32 numpy masks -> int32 tensor of the same bits on ``device``."""
+    arr = np.ascontiguousarray(masks, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def _popcount32(x):
+    """SWAR popcount of int32 words (as unsigned bits) -> int64 counts."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def popcount_rows(masks):
+    """(..., W) int32 packed masks -> (...,) int64 set-bit counts."""
+    return _popcount32(masks).sum(-1)
+
+
+def _check_matrix(matrix):
+    if matrix.dtype != torch.int32 or matrix.dim() != 2:
+        raise ValueError("matrix must be a 2-D int32 tensor of packed words")
+    if not matrix.is_contiguous():
+        raise ValueError("matrix must be contiguous")
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def popcount_colsum_plain(matrix, masks):
+    """Plain PyTorch version of :func:`popcount_colsum` (any device)."""
+    w, k = matrix.shape
+    c = masks.shape[0]
+    out = torch.empty((c, k), dtype=torch.int32, device=matrix.device)
+    step = max(1024, (1 << 24) // max(c * w, 1))
+    for lo in range(0, k, step):
+        sel = matrix[None, :, lo:lo + step] & masks[:, :, None]  # (C, W, B)
+        out[:, lo:lo + step] = _popcount32(sel).sum(1).to(torch.int32)
+    return out
+
+
+def popcount_colsum(matrix, masks):
+    """counts[c, k] = sum_w popcount(matrix[w, k] & masks[c, w]).
+
+    matrix: (W, K) int32 packed words; masks: (C, W) int32. Returns (C, K)
+    int32 on the matrix's device. A CUDA tensor launches the kernel (one
+    launch per 12288 / W masks); a CPU tensor takes the plain version.
+    """
+    _check_matrix(matrix)
+    if masks.dtype != torch.int32 or masks.dim() != 2 \
+            or masks.shape[1] != matrix.shape[0]:
+        raise ValueError("masks must be (C, W) int32 with W = matrix rows")
+    if masks.device != matrix.device:
+        raise ValueError("matrix and masks must be on one device")
+    if matrix.device.type != "cuda":
+        return popcount_colsum_plain(matrix, masks)
+    lib = _build.library("popcount_colsum", _SIGNATURES)
+    w, k = matrix.shape
+    c = masks.shape[0]
+    out = torch.empty((c, k), dtype=torch.int32, device=matrix.device)
+    if k == 0 or c == 0:
+        return out
+    chunk = max(1, _SMEM_WORDS // max(w, 1))
+    with torch.cuda.device(matrix.device):
+        for lo in range(0, c, chunk):
+            m = masks[lo:lo + chunk].contiguous()
+            o = out[lo:lo + chunk]
+            _build.check(lib.grm_popcount_colsum(
+                matrix.data_ptr(), w, k, m.data_ptr(), m.shape[0],
+                o.data_ptr(), _stream(matrix)), "popcount_colsum")
+            _build.launches["popcount_colsum"] += 1
+    return out
+
+
+def popcount_colsum_pairs_plain(matrix, masks, offsets, width):
+    """Plain PyTorch version of :func:`popcount_colsum_pairs`."""
+    k = matrix.shape[1]
+    out = torch.zeros((masks.shape[0], 2, width), dtype=torch.int32,
+                      device=matrix.device)
+    for i, off in enumerate(offsets.tolist()):
+        lo, hi = max(off, 0), min(off + width, k)
+        if hi > lo:
+            out[i, :, lo - off:hi - off] = popcount_colsum_plain(
+                matrix[:, lo:hi], masks[i])
+    return out
+
+
+def popcount_colsum_pairs(matrix, masks, offsets, width):
+    """Pair-batched column sums: pair p counts columns
+    ``[offsets[p], offsets[p] + width)`` against its own two masks.
+
+    masks: (P, 2, W) int32; offsets: (P,) int64. Returns (P, 2, width)
+    int32; columns outside [0, K) count 0. The same device function as
+    :func:`popcount_colsum`, one launch for all pairs.
+    """
+    _check_matrix(matrix)
+    if masks.dtype != torch.int32 or masks.dim() != 3 or masks.shape[1] != 2 \
+            or masks.shape[2] != matrix.shape[0]:
+        raise ValueError("masks must be (P, 2, W) int32 with W = matrix rows")
+    if offsets.dtype != torch.int64 or offsets.shape != masks.shape[:1]:
+        raise ValueError("offsets must be (P,) int64")
+    if masks.device != matrix.device or offsets.device != matrix.device:
+        raise ValueError("matrix, masks and offsets must be on one device")
+    if matrix.device.type != "cuda":
+        return popcount_colsum_pairs_plain(matrix, masks, offsets, width)
+    if 2 * matrix.shape[0] > _SMEM_WORDS or masks.shape[0] > 65535:
+        raise ValueError("too many words or pairs for one launch")
+    lib = _build.library("popcount_colsum", _SIGNATURES)
+    out = torch.empty((masks.shape[0], 2, width), dtype=torch.int32,
+                      device=matrix.device)
+    if masks.shape[0] == 0 or width == 0:
+        return out
+    masks = masks.contiguous()
+    offsets = offsets.contiguous()
+    with torch.cuda.device(matrix.device):
+        _build.check(lib.grm_popcount_colsum_pairs(
+            matrix.data_ptr(), matrix.shape[0], matrix.shape[1],
+            masks.data_ptr(), offsets.data_ptr(), masks.shape[0], width,
+            out.data_ptr(), _stream(matrix)), "popcount_colsum_pairs")
+        _build.launches["popcount_colsum_pairs"] += 1
+    return out
+
+
+def _gather_columns(matrix, cols):
+    """(C,) column indices -> (C, W) packed int32 columns."""
+    return matrix.index_select(1, cols).T.contiguous()
+
+
+class BitMatrix:
+    """Device-resident packed presence matrix with the reference's
+    ``sum_rows`` semantics (rules.py:201-267).
+
+    Wraps a (W, K) matrix for ``n_rows`` genomes; ``data`` is the int32
+    tensor on ``device`` (default ``"cuda"``).
+    """
+
+    def __init__(self, packed_u32, n_rows, device=None):
+        dev = resolve_device(device)
+        packed_u32 = np.asarray(packed_u32)
+        if packed_u32.dtype != np.uint32 or packed_u32.ndim != 2:
+            raise ValueError("BitMatrix expects a 2-D uint32-packed matrix.")
+        self.n_rows = int(n_rows)
+        self.n_words, self.n_columns = packed_u32.shape
+        if self.n_words * 32 < self.n_rows:
+            raise ValueError("Packed matrix has too few word-rows for n_rows.")
+        self.data = masks_to_tensor(packed_u32, dev)
+        self.device = dev
+
+    @classmethod
+    def from_u64(cls, m64, n_rows, device=None):
+        """From the on-disk uint64 layout; word rows past the last genome's
+        (all padding bits) are dropped."""
+        n_words = -(-int(n_rows) // 32)
+        return cls(u64_matrix_to_u32(m64)[:n_words], n_rows, device=device)
+
+    @classmethod
+    def from_dense(cls, dense01, device=None):
+        """From a dense (n_genomes, n_kmers) 0/1 matrix (tests, small data)."""
+        from ..utils import pack_binary_bytes_to_ints
+
+        dense01 = np.asarray(dense01, dtype=np.uint8)
+        return cls(pack_binary_bytes_to_ints(dense01, 32), dense01.shape[0],
+                   device=device)
+
+    @property
+    def shape(self):
+        """(n_genomes, 2 * n_kmers): presence then absence rules."""
+        return self.n_rows, self.n_columns * 2
+
+    def row_mask(self, rows):
+        return build_row_mask(np.asarray(rows, dtype=np.int64),
+                              self.n_words * 32, 32)
+
+    def presence_counts(self, rows_list):
+        """Presence counts for several row sets in one matrix pass:
+        (C, K) int64 numpy."""
+        masks = masks_to_tensor(
+            np.stack([self.row_mask(r) for r in rows_list]), self.device)
+        counts = popcount_colsum(self.data, masks)
+        return counts.cpu().numpy().astype(np.int64)
+
+    def sum_rows(self, rows):
+        """Length-2K vector, presence then absence counts, in the minimum
+        uint dtype for len(rows) (rules.py:201-267)."""
+        rows = np.asarray(rows)
+        presence = self.presence_counts([rows])[0]
+        out = np.empty(self.n_columns * 2,
+                       dtype=minimum_uint_size(max(rows.shape[0], 1)))
+        out[: self.n_columns] = presence
+        out[self.n_columns:] = rows.shape[0] - presence
+        return out
+
+    def get_columns_dense(self, cols):
+        """Unpacked presence columns (n_rows, len(cols)) uint8, gathered on
+        the device."""
+        cols = np.asarray(cols, dtype=np.int64)
+        if cols.size == 0:
+            return np.empty((self.n_rows, 0), np.uint8)
+        if (cols < 0).any() or (cols >= self.n_columns).any():
+            raise IndexError("column index out of range")
+        packed = _gather_columns(
+            self.data, torch.as_tensor(cols, device=self.device))
+        words = packed.cpu().numpy().view(np.uint32)  # (n, W)
+        return unpack_binary_bytes_from_ints(words.T)[: self.n_rows]
