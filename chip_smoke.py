@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of grm_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, checks the exact device
-engine against the host engine at reduced size, then drives ``learn scm``
-at the published median scale through both device engines.
+holds each against its plain PyTorch version, checks the device engines
+against the host engines at reduced size, then drives ``learn scm`` and
+``learn tree`` at the published median scale, each through two engines.
 
     python3 chip_smoke.py [--seed N]
 
@@ -16,32 +16,43 @@ Phases (any failure exits non-zero and prints no result):
    ragged offsets; both scm_sweep epilogues at F = 100 and 128, K ragged and
    K below one block, the published p grid and dyadic p, with and without
    an exclusion mask; and at the largest published genome count (W = 157).
+   cart_sweep at the same widths: N = 1, 37 and 200 nodes, C = 2 and 3
+   classes, Gini and cross-entropy, shared and per-node priors, with and
+   without an exclusion mask, a node with an empty class and a node with no
+   valid split. Gini: columns and scores equal. Cross-entropy: columns
+   equal, scores equal or at most 2 ulps apart (the kernel's logf and
+   torch.log come from two toolkits); the largest distance is printed.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
-   importances, metrics, classifications).
-5. The main path at full scale: 342 genomes x 9,600,000 k-mers (the
-   published median, BASELINE.md), 5-fold split, the 2 model types x 10 p
-   grid, max 10 rules, built in memory from --seed with the benchmark's
-   recipe (a planted 3-marker conjunction plus decoys). Two paths, each
-   driven with the launch counts set to 0 just before it and read just
-   after: ``learn_SCM(engine="device")`` plus ``write_scm_outputs`` (what
-   ``learn scm`` runs by default), then ``learn_SCM(engine=
-   "device-argmax")``. Each path must launch the kernels it is built on
-   (PATH_KERNELS). One more exact-engine run under torch.profiler must give
-   the same fingerprint, and gives the device time by kernel and the
-   device's busy share of the run.
-6. Each kernel at the main path's shapes: its device time per call from
-   torch.profiler (CUDA events only if the profiler sees no device time),
-   its plain version timed once, and the least time the card could take
-   (bound).
+   importances, metrics, classifications), and ``learn_CART(engine=
+   "device-argmax")`` the host engine's tree and train and test metrics
+   (the argmax engine keeps no tie sets).
+5. The main paths at full scale: 342 genomes x 9,600,000 k-mers (the
+   published median, BASELINE.md), 5-fold split, built in memory from
+   --seed with the benchmark's recipe (a planted 3-marker conjunction plus
+   decoys). Four paths, each driven with the launch counts set to 0 just
+   before it and read just after: ``learn_SCM(engine="device")`` over the
+   2 model types x 10 p grid, max 10 rules, plus ``write_scm_outputs``
+   (what ``learn scm`` runs by default); ``learn_SCM(engine=
+   "device-argmax")``; ``learn_CART(engine="device-argmax")`` with both
+   criteria, depth 10, plus ``write_cart_outputs``; and
+   ``learn_CART(engine="host")`` with Gini, depth 3. Each path must launch
+   the kernels it is built on (PATH_KERNELS) and learn a model with at
+   least one rule and finite importances. One more exact SCM run and one
+   more argmax CART run under torch.profiler must give the same
+   fingerprints, and give the device time by kernel and the device's busy
+   share of the run.
+6. Each kernel at the main paths' shapes (cart_sweep at the largest
+   frontier phase 5 saw): its device time per call from torch.profiler
+   (CUDA events only if the profiler sees no device time), its plain
+   version timed once, and the least time the card could take (bound).
 
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
-the sum of the two paths' counts and ``launches_by_path`` gives each path's
-own. Kernel libraries are built into
-``grm_tpu_torch/_kernels/``.
+the sum of the four paths' counts and ``launches_by_path`` gives each
+path's own. Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
 import argparse
@@ -61,6 +72,7 @@ P_GRID = [0.1, 0.178, 0.316, 0.562, 1.0, 1.778, 3.162, 5.623, 10.0,
           999999.0]
 MEDIAN_GENOMES, MEDIAN_KMERS = 342, 9_600_000  # BASELINE.md
 SMALL_KMERS = 200_000
+SMALL_DEPTH = 3  # phase 4: the depth of the planted 3-marker conjunction
 N_FOLDS = 5
 MAX_RULES = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -75,14 +87,19 @@ KERNELS = {
                          "grm_tpu/ops/pallas_scm_sweep.py:211"),
     "scm_sweep_sbmax": ("grm_tpu_torch/csrc/scm_sweep.cu",
                         "grm_tpu/ops/pallas_scm_sweep.py:105"),
+    "cart_sweep": ("grm_tpu_torch/csrc/cart_sweep.cu",
+                   "grm_tpu/ops/pallas_cart_sweep.py:194"),
 }
-# The kernels each main path is built on: the exact engine's pass 1 and
-# pass 2; the argmax engine's CV sweep, its winner-block recount, and its
-# full-train fit (parallel/mesh.py).
+# The kernels each main path is built on. learn scm: the exact engine's
+# pass 1 and pass 2; the argmax engine's CV sweep, its winner-block recount,
+# and its full-train fit (parallel/mesh.py). learn tree: the argmax engine's
+# frontier sweep; the host engine's per-node class counts.
 PATH_KERNELS = {
     "device": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "device-argmax": ("scm_sweep_argmax", "popcount_colsum_pairs",
                       "popcount_colsum"),
+    "tree-device-argmax": ("cart_sweep",),
+    "tree-host": ("popcount_colsum",),
 }
 # The CUDA function each wrapper launches, as torch.profiler names it.
 KERNEL_FUNCTIONS = {
@@ -90,7 +107,10 @@ KERNEL_FUNCTIONS = {
     "popcount_colsum_pairs": "colsum_pairs_kernel",
     "scm_sweep_argmax": "scm_sweep_kernel<0>",
     "scm_sweep_sbmax": "scm_sweep_kernel<1>",
+    "cart_sweep": "cart_sweep_kernel",
 }
+CART_CRITERIA = ("gini", "cross-entropy")
+MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
 
 
 def log(msg):
@@ -205,6 +225,46 @@ def learn(mem, engine, device):
         engine=engine, device=device)
 
 
+def learn_tree(mem, engine, device, criterion, max_depth):
+    from grm_tpu_torch.learning.experiments import learn_CART
+
+    return learn_CART(
+        dataset_file=mem, split_name="sp", criterion=criterion,
+        max_depth=[max_depth], min_samples_split=[2],
+        class_importance=[{0: 1.0, 1: 1.0}], bound_delta=0.05,
+        bound_max_genome_size=mem["kmer_sequences"].shape[0],
+        parameter_selection="cv", engine=engine, device=device)
+
+
+def tree_fingerprint(out, selection=True):
+    """Everything learn_CART decides. Without ``selection``, only what the
+    host and the argmax engine must agree on: the tree, its rules and
+    importances, the metrics and the classifications. Exact ties between
+    rules go to the most frequent k-mer on the host and to the lowest column
+    in the argmax engine, so tie sets, fold trees, and with them the CV
+    score and the pruning alpha, may differ by design."""
+    best_hp, score, train_m, test_m, model, imps, equiv, cls = out
+    norm = lambda m: None if m is None else {
+        k: [float(x) for x in v] for k, v in m.items()}
+    key = lambda r: (_s(r.kmer_sequence), _s(r.type))
+    fp = {
+        "tree": str(model),
+        "rules": [key(r) for r in model.decision_tree.rules],
+        "importances": [float(imps[r]) for r in model.decision_tree.rules],
+        "train": norm(train_m),
+        "test": norm(test_m),
+        "cls": {k: sorted(_s(g) for g in v) for k, v in cls.items()},
+    }
+    if selection:
+        fp["hp"] = (_s(best_hp["criterion"]), int(best_hp["max_depth"]),
+                    float(best_hp["min_samples_split"]),
+                    float(best_hp["pruning_alpha"]))
+        fp["score"] = float(score)
+        fp["equiv"] = [sorted(key(e) for e in equiv[r])
+                       for r in model.decision_tree.rules]
+    return fp
+
+
 # -- kernels against their plain versions -------------------------------------
 
 def _words(rng, shape, device):
@@ -236,6 +296,69 @@ def fit_inputs(rng, f, n_genomes, p_values, device):
             to(ps))
 
 
+def frontier_inputs(rng, n, c, n_genomes, per_node, device):
+    """A frontier of n nodes over c classes: random disjoint class masks;
+    node 0's second class is empty, and (from two nodes on) the last node
+    holds one example, so that no rule splits it. Priors and totals are
+    shared (c,) or per node (n, c)."""
+    import torch
+
+    w = -(-n_genomes // 32)
+    masks = np.zeros((n, c, w), np.uint32)
+    pick = rng.rand(n, n_genomes) < 0.7
+    owner = rng.randint(0, c, size=(n, n_genomes))
+    if c > 1:
+        owner[0][owner[0] == 1] = 0
+    if n > 1:
+        pick[-1] = False
+        pick[-1, rng.randint(n_genomes)] = True
+    bits = np.uint32(1) << (31 - np.arange(n_genomes) % 32).astype(np.uint32)
+    for i in range(n):
+        for ci in range(c):
+            rows = np.where(pick[i] & (owner[i] == ci))[0]
+            np.bitwise_or.at(masks[i, ci], rows // 32, bits[rows])
+    n_node = np.unpackbits(masks.view(np.uint8), axis=2).sum(2)
+    shape = (n, c) if per_node else (c,)
+    priors = (rng.rand(*shape) + 0.1).astype(np.float32)
+    totals = rng.randint(n_genomes // 2, n_genomes, size=shape)
+    to = lambda a: torch.from_numpy(a).to(device)
+    return (to(masks.view(np.int32)), to(n_node.astype(np.int32)),
+            to(priors), to(totals.astype(np.float32)))
+
+
+def max_ulps(got, want):
+    """Largest distance in float32 steps between two float32 tensors that
+    are infinite at the same places; inf if they are not."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape or not torch.equal(torch.isinf(got),
+                                                  torch.isinf(want)):
+        return float("inf")
+    fin = torch.isfinite(want)
+    if not fin.any():
+        return 0
+    a = got[fin].view(torch.int32).long()
+    b = want[fin].view(torch.int32).long()
+    return int((a - b).abs().max())
+
+
+def compare_cart_blocks(got, want, criterion):
+    """(error, ulps) of cart_sweep's (score, col) blocks against the plain
+    version's: columns must be equal; Gini scores equal; cross-entropy
+    scores at most MAX_LOG_ULPS apart. Raises otherwise."""
+    import torch
+
+    if not torch.equal(got[1].cpu(), want[1].cpu()):
+        raise AssertionError("cart_sweep (%s): winning columns differ from "
+                             "the plain version's" % criterion)
+    ulps = max_ulps(got[0], want[0])
+    if ulps > (0 if criterion == "gini" else MAX_LOG_ULPS):
+        raise AssertionError("cart_sweep (%s): scores %r ulps from the plain "
+                             "version's" % (criterion, ulps))
+    return max_abs_err(got[0], want[0]), ulps
+
+
 def max_abs_err(got, want):
     """Exact comparison: equal infinities, then the largest finite gap.
     Tuples of tensors compare element by element."""
@@ -255,7 +378,11 @@ def max_abs_err(got, want):
 
 
 def check_kernels(device, n_genomes=342, k=1_000_003):
-    """Phase 3: every kernel equals its plain version exactly."""
+    """Phase 3: every kernel equals its plain version exactly (the
+    cross-entropy scores of cart_sweep to MAX_LOG_ULPS). Returns the largest
+    absolute error per kernel and cart_sweep's largest distance in ulps per
+    criterion."""
+    from grm_tpu_torch.ops import cart_sweep as cs
     from grm_tpu_torch.ops import popcount as pc
     from grm_tpu_torch.ops import scm_sweep as sw
 
@@ -325,7 +452,62 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
            "W=157 F=128")
     record("scm_sweep_sbmax", sw.scm_sweep_sbmax(m, *fits, kw, 8192, excl),
            sw.scm_sweep_sbmax_plain(m, *fits, kw, 8192, excl), "W=157 F=128")
-    return worst
+
+    ulps = {crit: 0 for crit in CART_CRITERIA}
+
+    def cart_case(mat, genomes, n, c, criterion, per_node, excl_on):
+        kk = mat.shape[1]
+        masks, n_node, priors, totals = frontier_inputs(rng, n, c, genomes,
+                                                        per_node, device)
+        scale = (priors / totals).expand(n, c).contiguous()
+        ex = None
+        if excl_on:
+            ex = torch.from_numpy((rng.rand(kk) < 0.2).astype(np.uint8)
+                                  ).to(device)
+        args = (mat, masks, n_node, scale, criterion, kk - 5,
+                min(cs.BLOCK_K, kk), ex)
+        try:
+            err, u = compare_cart_blocks(cs.cart_sweep_blocks(*args),
+                                         cs.cart_sweep_blocks_plain(*args),
+                                         criterion)
+        except AssertionError as e:
+            raise AssertionError("%s at W=%d K=%d N=%d C=%d per-node=%s "
+                                 "excl=%s" % (e, mat.shape[0], kk, n, c,
+                                              per_node, excl_on))
+        worst["cart_sweep"] = max(worst.get("cart_sweep", 0.0), err)
+        ulps[criterion] = max(ulps[criterion], u)
+        # The reduction over blocks: least score, then lowest column; the
+        # nodes that no rule splits come back as (NO_COLUMN, +inf).
+        col, best = cs.cart_frontier_scores(
+            mat, masks, n_node, priors, totals, criterion, kk - 5, excl=ex)
+        pcol, pbest = cs.cart_frontier_scores_plain(
+            mat, masks, n_node, priors, totals, criterion, kk - 5, excl=ex)
+        if not torch.equal(col, pcol) or max_ulps(best, pbest) > (
+                0 if criterion == "gini" else MAX_LOG_ULPS):
+            raise AssertionError("cart_frontier_scores differs from its "
+                                 "plain version at N=%d C=%d" % (n, c))
+        dead = torch.isinf(best).cpu()
+        if bool(dead[:-1].any()) or (n > 1 and not bool(dead[-1])):
+            raise AssertionError("cart_frontier_scores: the nodes without a "
+                                 "valid split are %s" % dead.tolist())
+
+    for kk in (k, 3001):
+        mat = matrix if kk == k else matrix[:, :kk].contiguous()
+        for n in (1, 37, 200):
+            for c in (2, 3):
+                for criterion in CART_CRITERIA:
+                    for per_node, excl_on in ((False, False), (True, True)):
+                        cart_case(mat, n_genomes, n, c, criterion, per_node,
+                                  excl_on)
+    # 5 classes run the kernel's 8-class build, filled up with empty classes.
+    for criterion in CART_CRITERIA:
+        cart_case(matrix[:, :3001].contiguous(), n_genomes, 37, 5, criterion,
+                  True, True)
+    # W = 157: 200 nodes x 2 classes of masks pass the shared-memory budget,
+    # so the nodes split over grid rows.
+    for criterion in CART_CRITERIA:
+        cart_case(m, wide, 200, 2, criterion, True, True)
+    return worst, ulps
 
 
 # -- timing -------------------------------------------------------------------
@@ -377,12 +559,14 @@ def device_ms(fn, reps, function):
     return time_cuda(fn, reps), "cuda events"
 
 
-def time_kernels(bm, popc_per_s, device, paths):
-    """Phase 6: each kernel at the main path's shapes against its plain
+def time_kernels(bm, popc_per_s, device, paths, frontier):
+    """Phase 6: each kernel at the main paths' shapes against its plain
     version on the same inputs, with its bound; one JSON line each, with
-    its launches on each main path."""
+    its launches on each main path. ``frontier`` is the number of nodes
+    cart_sweep is timed at."""
     import torch
 
+    from grm_tpu_torch.ops import cart_sweep as cs
     from grm_tpu_torch.ops import popcount as pc
     from grm_tpu_torch.ops import scm_sweep as sw
 
@@ -391,26 +575,39 @@ def time_kernels(bm, popc_per_s, device, paths):
     w, k = matrix.shape
     rows = {}
 
-    def bound(nbytes, popc):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = popc / popc_per_s * 1e3
-        return (max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
+    def bound(nbytes, popc, special=0):
+        """The largest of the byte time, the popc time and the
+        special-function time (divisions and logs, which run at the popc
+        rate): (ms, "bytes" or "operations", which of the three)."""
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "popc": popc / popc_per_s * 1e3,
+                 "special-function": special / popc_per_s * 1e3}
+        what = max(times, key=times.get)
+        return (times[what], "bytes" if what == "bytes" else "operations",
+                what)
 
-    def row(name, kernel, plain, nbytes, popc, reps, shape):
-        got, want = kernel(), plain()
-        err = max_abs_err(got, want)
-        if err != 0.0:
-            raise AssertionError("%s differs from its plain version at the "
-                                 "main path's shapes (%r)" % (name, err))
+    def exact(name):
+        def compare(got, want):
+            err = max_abs_err(got, want)
+            if err != 0.0:
+                raise AssertionError("%s differs from its plain version at "
+                                     "the main path's shapes (%r)"
+                                     % (name, err))
+            return err
+        return compare
+
+    def row(name, kernel, plain, nbytes, popc, reps, shape, special=0,
+            compare=None, key=None):
+        err = (compare or exact(name))(kernel(), plain())
         ms, timed_by = device_ms(kernel, reps, KERNEL_FUNCTIONS[name])
         event_ms = time_cuda(kernel, reps)
         plain_ms = time_cuda(plain, 1)
-        bound_ms, bound_by = bound(nbytes, popc)
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": None}
-        log(json.dumps({"kernel": name, "shape": shape, **rows[name],
+        bound_ms, bound_by, bound_what = bound(nbytes, popc, special)
+        rows[key or name] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        log(json.dumps({"kernel": key or name, "shape": shape,
+                        **rows[key or name], "bound_what": bound_what,
                         "timed_by": timed_by, "event_ms": event_ms,
                         "launches": {e: paths[e][name] for e in paths}}))
 
@@ -448,25 +645,43 @@ def time_kernels(bm, popc_per_s, device, paths):
         lambda: sw.scm_sweep_sbmax_plain(matrix, *fits, k, 8192),
         4 * w * k + 120 * (8 * w + 12) + 4 * nsb * 120, 2 * 120 * w * k, 5,
         "W=%d K=%d F=120 sb=8192" % (w, k))
+    # The argmax CART engine's largest frontier: per-node priors (a forest
+    # of fold and master trees), two classes, no exclusion mask.
+    n, c = frontier, 2
+    masks, n_node, priors, totals = frontier_inputs(rng, n, c, bm.n_rows,
+                                                    True, device)
+    scale = (priors / totals).contiguous()
+    nb = -(-k // cs.BLOCK_K)
+    for criterion in CART_CRITERIA:
+        args = (matrix, masks, n_node, scale, criterion, k, cs.BLOCK_K)
+        row("cart_sweep", lambda: cs.cart_sweep_blocks(*args),
+            lambda: cs.cart_sweep_blocks_plain(*args),
+            4 * w * k + n * c * (4 * w + 8) + 8 * nb * n, n * c * w * k, 5,
+            "W=%d K=%d N=%d C=%d %s block=%d" % (w, k, n, c, criterion,
+                                                 cs.BLOCK_K),
+            special=n * k * (2 if criterion == "gini" else 4 * c),
+            compare=lambda got, want: compare_cart_blocks(got, want,
+                                                          criterion)[0],
+            key="cart_sweep:" + criterion)
     return rows
 
 
-def profile_learn(mem, device, wall, want):
-    """One more learn_SCM(engine="device") run under torch.profiler: it must
-    give the fingerprint ``want`` of the unprofiled run. Prints the device
-    time by kernel name and the device's busy share of ``wall``, the
-    unprofiled run's wall seconds; "not measured" if the profiler holds no
-    device data."""
+def profile_learn(what, run_once, wall, want):
+    """One more run of the path ``what`` under torch.profiler:
+    ``run_once()`` returns its fingerprint, which must be ``want``, the
+    unprofiled run's. Prints the device time by kernel name and the
+    device's busy share of ``wall``, the unprofiled run's wall seconds;
+    "not measured" if the profiler holds no device data."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = learn(mem, "device", device)
+        got = run_once()
         torch.cuda.synchronize()
-    if fingerprint(out) != want:
-        raise AssertionError("the profiled exact-engine run learned another "
-                             "model than the unprofiled one")
+    if got != want:
+        raise AssertionError("the profiled run of %s learned another model "
+                             "than the unprofiled one" % what)
     try:  # only the reading of the profile may fail without failing the run
         rows = [(_device_us(e), e.key, e.count) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
@@ -477,9 +692,9 @@ def profile_learn(mem, device, wall, want):
         log("    device time by kernel: not measured (no device events)")
         return
     total_ms = sum(r[0] for r in rows) / 1e3
-    log("    device time over learn_SCM(engine='device'): %.2f ms = %.1f%% "
-        "busy of the %.3f s unprofiled wall; by kernel:"
-        % (total_ms, 100.0 * total_ms / (wall * 1e3), wall))
+    log("    device time over %s: %.2f ms = %.1f%% busy of the %.3f s "
+        "unprofiled wall; by kernel:"
+        % (what, total_ms, 100.0 * total_ms / (wall * 1e3), wall))
     for us, key, count in sorted(rows, reverse=True)[:8]:
         log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
 
@@ -520,10 +735,11 @@ def run(seed):
 
     # 3. kernels against their plain versions
     t0 = time.time()
-    worst = check_kernels(device)
+    worst, ulps = check_kernels(device)
     torch.cuda.synchronize()
-    log("[3] kernels equal their plain versions (max abs err %s) in %.1f s"
-        % (worst, time.time() - t0))
+    log("[3] kernels equal their plain versions (max abs err %s; cart_sweep "
+        "scores, largest distance in ulps %s) in %.1f s"
+        % (worst, ulps, time.time() - t0))
 
     # 4. device engine == host engine at reduced size
     t0 = time.time()
@@ -542,76 +758,150 @@ def run(seed):
         "%.4f); artifact %.1f s, host %.1f s, device %.1f s"
         % (MEDIAN_GENOMES, SMALL_KMERS, fp_dev["hp"], len(fp_dev["rules"]),
            fp_dev["test"]["risk"][0], t_art, t_host, t_dev))
+    t0 = time.time()
+    tree_host = tree_fingerprint(
+        learn_tree(small, "host", device, list(CART_CRITERIA), SMALL_DEPTH),
+        selection=False)
+    t_host = time.time() - t0
+    t0 = time.time()
+    tree_dev = tree_fingerprint(
+        learn_tree(small, "device-argmax", device, list(CART_CRITERIA),
+                   SMALL_DEPTH), selection=False)
+    t_dev = time.time() - t0
+    if tree_dev != tree_host:
+        raise AssertionError("learn_CART: device-argmax != host at %dx%d:\n"
+                             "%s\n%s" % (MEDIAN_GENOMES, SMALL_KMERS, tree_dev,
+                                         tree_host))
+    log("    learn_CART(depth %d): device-argmax tree and metrics == host "
+        "(%d rules, test risk %.4f); host %.1f s, device-argmax %.1f s"
+        % (SMALL_DEPTH, len(tree_dev["rules"]),
+           tree_dev["test"]["risk"][0], t_host, t_dev))
     del small
 
-    # 5. the main path at full scale
+    # 5. the main paths at full scale
     t0 = time.time()
     mem = build_artifact(MEDIAN_GENOMES, MEDIAN_KMERS, seed, device)
     torch.cuda.synchronize()
     log("[5] artifact %dx%d + %d-fold split built in %.1f s (set-up)"
         % (MEDIAN_GENOMES, MEDIAN_KMERS, N_FOLDS, time.time() - t0))
     from grm_tpu_torch.dataset import GrmDataset
-    from grm_tpu_torch.reports import write_scm_outputs
+    from grm_tpu_torch.reports import write_cart_outputs, write_scm_outputs
 
-    paths = {}  # engine -> launches, counted from 0 over that path alone
-    fingerprints = {}
-    walls = {}
-    for engine in PATH_KERNELS:
-        _build.reset_launches()
-        t0 = time.time()
+    def scm_path(engine):
         out = learn(mem, engine, device)
         torch.cuda.synchronize()
-        wall = walls[engine] = time.time() - t0
-        written = None
-        if engine == "device":  # learn scm's default path writes its reports
-            t1 = time.time()
-            with tempfile.TemporaryDirectory() as out_dir:
-                (best_hp, best_hp_score, train_metrics, test_metrics, model,
-                 rule_importances, equivalent_rules, classifications) = out
-                write_scm_outputs(
-                    output_dir=out_dir, dataset=GrmDataset(mem, device=device),
-                    split_name="sp",
-                    config={"engine": engine, "hp_choice": "cv"},
-                    best_hp=best_hp, best_hp_score=best_hp_score,
-                    train_metrics=train_metrics, test_metrics=test_metrics,
-                    model=model, rule_importances=rule_importances,
-                    equivalent_rules=equivalent_rules,
-                    classifications=classifications, running_time_seconds=0.0)
-                written = "%s in %.2f s" % (sorted(os.listdir(out_dir)),
-                                            time.time() - t1)
-        paths[engine] = dict(_build.launches)
-        fp = fingerprints[engine] = fingerprint(out)
-        if not fp["rules"] or not np.isfinite(fp["score"]):
-            raise AssertionError("%s engine learned no model" % engine)
-        if not all(np.isfinite(v) for v in fp["importances"]):
-            raise AssertionError("%s engine: non-finite importances" % engine)
-        log("    learn_SCM(engine=%r): %.2f s; hp %s, cv score %.5f, rules %s,"
-            " train risk %.4f, test risk %.4f; launches %s"
-            % (engine, wall, fp["hp"], fp["score"],
-               [r[1][0] + ":" + r[0] for r in fp["rules"]],
-               fp["train"]["risk"][0], fp["test"]["risk"][0], paths[engine]))
-        if written:
-            log("    write_scm_outputs: %s" % written)
-        missing = [k for k in PATH_KERNELS[engine] if paths[engine][k] == 0]
-        if missing:
-            raise AssertionError("engine %r launched no %s" % (engine, missing))
-    profile_learn(mem, device, walls["device"], fingerprints["device"])
+        return out, fingerprint(out)
 
-    # 6. kernel times at the main path's shapes
-    log("[6] kernel times at the main path's shapes:")
+    def tree_path(engine, criterion, max_depth):
+        out = learn_tree(mem, engine, device, criterion, max_depth)
+        torch.cuda.synchronize()
+        return out, tree_fingerprint(out)
+
+    def write_reports(writer, out, config, **more):
+        """What the CLI does after learning: the report files, into a
+        temporary directory."""
+        t1 = time.time()
+        (best_hp, best_hp_score, train_metrics, test_metrics, model,
+         rule_importances, equivalent_rules, classifications) = out
+        with tempfile.TemporaryDirectory() as out_dir:
+            writer(
+                output_dir=out_dir, dataset=GrmDataset(mem, device=device),
+                split_name="sp", config=config, best_hp=best_hp,
+                best_hp_score=best_hp_score, train_metrics=train_metrics,
+                test_metrics=test_metrics, model=model,
+                rule_importances=rule_importances,
+                equivalent_rules=equivalent_rules,
+                classifications=classifications, running_time_seconds=0.0,
+                **more)
+            return "%s in %.2f s" % (sorted(os.listdir(out_dir)),
+                                     time.time() - t1)
+
+    runners = {
+        "device": lambda: scm_path("device"),
+        "device-argmax": lambda: scm_path("device-argmax"),
+        "tree-device-argmax": lambda: tree_path(
+            "device-argmax", list(CART_CRITERIA), 10),
+        "tree-host": lambda: tree_path("host", ["gini"], 3),
+    }
+    paths = {}  # path -> launches, counted from 0 over that path alone
+    fingerprints = {}
+    walls = {}
+    frontiers = []
+    for path in PATH_KERNELS:
+        _build.reset_launches()
+        t0 = time.time()
+        out, fp = runners[path]()
+        wall = walls[path] = time.time() - t0
+        written = None
+        if path == "device":  # learn scm's default path writes its reports
+            written = write_reports(
+                write_scm_outputs, out, {"engine": path, "hp_choice": "cv"})
+        elif path == "tree-device-argmax":
+            written = write_reports(
+                write_cart_outputs, out,
+                {"engine": "device-argmax", "hp_choice": "cv",
+                 "criterion": list(CART_CRITERIA), "max_depth": [10]},
+                classification_type="binary")
+        paths[path] = dict(_build.launches)
+        sizes = list(_build.cart_frontiers)  # (nodes, criterion) per launch
+        fingerprints[path] = fp
+        if not fp["rules"] or not np.isfinite(fp["score"]):
+            raise AssertionError("path %r learned no model" % path)
+        if not all(np.isfinite(v) for v in fp["importances"]):
+            raise AssertionError("path %r: non-finite importances" % path)
+        if path.startswith("tree-"):
+            log("    learn_CART(%s): %.2f s; hp %s, cv score %.5f, %d rules, "
+                "depth-first %s, train risk %.4f, test risk %.4f; launches %s"
+                % (path, wall, fp["hp"], fp["score"], len(fp["rules"]),
+                   [r[0] for r in fp["rules"]][:6], fp["train"]["risk"][0],
+                   fp["test"]["risk"][0], paths[path]))
+        else:
+            log("    learn_SCM(engine=%r): %.2f s; hp %s, cv score %.5f, rules "
+                "%s, train risk %.4f, test risk %.4f; launches %s"
+                % (path, wall, fp["hp"], fp["score"],
+                   [r[1][0] + ":" + r[0] for r in fp["rules"]],
+                   fp["train"]["risk"][0], fp["test"]["risk"][0],
+                   paths[path]))
+        if sizes:
+            frontiers = sizes
+            log("    frontier size per cart_sweep launch (%d launches): %s"
+                % (len(sizes), [n for n, _ in sizes]))
+        if written:
+            log("    reports: %s" % written)
+        missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
+        if missing:
+            raise AssertionError("path %r launched no %s" % (path, missing))
+    if not frontiers:
+        raise AssertionError("the argmax CART engine launched no frontier")
+    profile_learn("learn_SCM(engine='device')",
+                  lambda: scm_path("device")[1], walls["device"],
+                  fingerprints["device"])
+    profile_learn("learn_CART(engine='device-argmax')",
+                  lambda: runners["tree-device-argmax"]()[1],
+                  walls["tree-device-argmax"],
+                  fingerprints["tree-device-argmax"])
+
+    # 6. kernel times at the main paths' shapes
+    log("[6] kernel times at the main paths' shapes:")
     bm = GrmDataset(mem, device=device).bit_matrix()
-    rows = time_kernels(bm, popc_per_s, device, paths)
+    rows = time_kernels(bm, popc_per_s, device, paths,
+                        max(n for n, _ in frontiers))
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
-        r = rows[kname]
         by_path = {e: paths[e][kname] for e in paths}
-        kernels.append({
-            "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        entry = {"name": kname, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path}
+        if kname == "cart_sweep":
+            # Gini, the CLI's default criterion, under the common keys; the
+            # error is the larger of the two criteria's.
+            r, x = rows["cart_sweep:gini"], rows["cart_sweep:cross-entropy"]
+            entry.update(r, max_abs_err=max(r["max_abs_err"],
+                                            x["max_abs_err"]),
+                         cross_entropy=x)
+        else:
+            entry.update(rows[kname])
+        kernels.append(entry)
     return name, smi, kernels
 
 

@@ -1,4 +1,4 @@
-"""Binary prediction metrics, vectorized over model lengths (the port's copy
+"""Binary and multiclass prediction metrics, vectorized over model lengths (the port's copy
 of ``grm_tpu/learning/metrics.py``).
 
 The experiment drivers score every model prefix length at once (one
@@ -19,7 +19,7 @@ from collections import defaultdict
 
 import numpy as np
 
-__all__ = ["get_binary_metrics"]
+__all__ = ["get_binary_metrics", "get_multiclass_metrics"]
 
 
 def _as_rows(predictions):
@@ -69,4 +69,35 @@ def get_binary_metrics(predictions, answers):
     metrics["recall"] = [float(v) for v in recall]
     metrics["specificity"] = [float(v) for v in specificity]
     metrics["f1_score"] = [float(v) for v in f1]
+    return metrics
+
+
+def get_multiclass_metrics(predictions, answers, nb_class):
+    """Multiclass risk + confusion matrices (rows = actual class, columns =
+    predicted class; labels outside [0, nb_class) are never counted)."""
+    p = _as_rows(predictions)
+    y = np.asarray(answers)
+
+    risk = (p != y).sum(axis=1) / float(y.shape[0])
+
+    # One flattened bincount per row: cell (a, pr) <- a * nb_class + pr.
+    # int64 up front: small label dtypes (uint8 answers) would overflow the
+    # flattening product under NEP-50 dtype preservation.
+    y = y.astype(np.int64)
+    p = p.astype(np.int64)
+    in_range = (
+        (y >= 0) & (y < nb_class) & (p >= 0) & (p < nb_class)
+    )
+    flat = y[None, :] * nb_class + p
+    confusions = [
+        np.bincount(flat[i][in_range[i]], minlength=nb_class * nb_class)
+        .reshape(nb_class, nb_class)
+        for i in range(p.shape[0])
+    ]
+
+    metrics = defaultdict(list)
+    metrics["risk"] = [float(v) for v in risk]
+    metrics["confusion_matrix"] = [
+        [[int(c) for c in row] for row in cm] for cm in confusions
+    ]
     return metrics

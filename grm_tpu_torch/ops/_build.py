@@ -14,6 +14,7 @@ launches its kernel, and nowhere else.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,12 +22,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "build_all", "check", "launches", "reset_launches",
-           "BUILD_LOG"]
+__all__ = ["library", "build_all", "check", "launches", "cart_frontiers",
+           "reset_launches", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels"
-SOURCES = ("popcount_colsum", "scm_sweep")
+SOURCES = ("popcount_colsum", "scm_sweep", "cart_sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,7 +38,11 @@ launches = {
     "popcount_colsum_pairs": 0,
     "scm_sweep_argmax": 0,
     "scm_sweep_sbmax": 0,
+    "cart_sweep": 0,
 }
+# (nodes, criterion) of the latest cart_sweep launches, one entry beside
+# each count: the frontier sizes a path really gave the kernel.
+cart_frontiers = collections.deque(maxlen=4096)
 BUILD_LOG = {}  # source name -> nvcc/ptxas output of its last build
 _LIBS = {}
 
@@ -45,6 +50,7 @@ _LIBS = {}
 def reset_launches():
     for name in launches:
         launches[name] = 0
+    cart_frontiers.clear()
 
 
 def _nvcc():

@@ -1,7 +1,8 @@
 """The port's CLI (``python -m grm_tpu_torch learn scm --device cpu``, exact
-device engine by default) against ``grm learn scm --engine host``: every
-report file is equal, apart from the running time and the lines that say
-how each ran (``engine``, ``device`` and ``n_devices`` in the
+device engine by default; ``learn tree --device cpu``, host engine by
+default there) against ``grm learn scm --engine host`` and ``grm learn
+tree``: every report file is equal, apart from the running time and the
+lines that say how each ran (``engine``, ``device`` and ``n_devices`` in the
 configuration)."""
 
 import json
@@ -19,14 +20,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_KEYS = ("engine", "device", "n_devices")
 
 
-def _run(module, args, cwd):
+def _run(module, args, cwd, expect=0):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["GRM_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run([sys.executable, "-m", module] + args, cwd=cwd,
                        env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.returncode == expect, r.stdout + r.stderr
+    return r.stdout
 
 
 @pytest.fixture(scope="module")
@@ -60,24 +62,10 @@ def _strip_report(text):
             and l.split(":")[0] not in RUN_KEYS]
 
 
-@pytest.mark.parametrize("hp_choice", ["cv", "bound"])
-def test_port_cli_reports_equal_jax_host(artifact, hp_choice):
-    common = ["learn", "scm", "--dataset", "ds.h5", "--split", "sp",
-              "--p", "0.5", "1.0", "4.0", "--max-rules", "4",
-              "--hp-choice", hp_choice, "--random-seed", "7"]
-    # Both write to the same --output-dir (it is part of the config), one
-    # after the other.
-    want_dir = artifact / ("jax_" + hp_choice)
-    got_dir = artifact / ("torch_" + hp_choice)
-    _run("grm_tpu", common + ["--engine", "host", "--output-dir", "out"],
-         artifact)
-    os.rename(artifact / "out", want_dir)
-    _run("grm_tpu_torch", common + ["--device", "cpu", "--output-dir", "out"],
-         artifact)
-    os.rename(artifact / "out", got_dir)
+def _assert_same_outputs(want_dir, got_dir, expected_names):
     names = sorted(os.listdir(want_dir))
     assert sorted(os.listdir(got_dir)) == names
-    assert "model.fasta" in names and "model_rule_1_equiv.fasta" in names
+    assert expected_names <= set(names)
     for name in names:
         want = (want_dir / name).read_text()
         got = (got_dir / name).read_text()
@@ -96,3 +84,57 @@ def test_port_cli_reports_equal_jax_host(artifact, hp_choice):
             assert g == w
         else:
             assert got == want, name
+
+
+def _both_clis(artifact, tag, common, jax_extra, port_extra):
+    """Both write to the same --output-dir (it is part of the config), one
+    after the other."""
+    want_dir = artifact / ("jax_" + tag)
+    got_dir = artifact / ("torch_" + tag)
+    _run("grm_tpu", common + jax_extra + ["--output-dir", "out"], artifact)
+    os.rename(artifact / "out", want_dir)
+    _run("grm_tpu_torch", common + port_extra + ["--output-dir", "out"],
+         artifact)
+    os.rename(artifact / "out", got_dir)
+    return want_dir, got_dir
+
+
+@pytest.mark.parametrize("hp_choice", ["cv", "bound"])
+def test_port_cli_reports_equal_jax_host(artifact, hp_choice):
+    common = ["learn", "scm", "--dataset", "ds.h5", "--split", "sp",
+              "--p", "0.5", "1.0", "4.0", "--max-rules", "4",
+              "--hp-choice", hp_choice, "--random-seed", "7"]
+    want_dir, got_dir = _both_clis(artifact, hp_choice, common,
+                                   ["--engine", "host"], ["--device", "cpu"])
+    _assert_same_outputs(want_dir, got_dir,
+                         {"model.fasta", "model_rule_1_equiv.fasta"})
+
+
+@pytest.mark.parametrize("hp_choice,engine", [("cv", None), ("bound", None),
+                                              ("cv", "device-argmax")])
+def test_port_cli_learn_tree_reports_equal_jax(artifact, hp_choice, engine):
+    """``learn tree --device cpu`` (host engine by default there, as ``grm
+    learn tree`` on a CPU backend) and ``--engine device-argmax``, over a
+    grid of criteria, depths and class importances."""
+    common = ["learn", "tree", "--dataset", "ds.h5", "--split", "sp",
+              "--criterion", "gini", "crossentropy", "--max-depth", "2", "4",
+              "--class-importance", "0.5", "1.0", "--hp-choice", hp_choice]
+    if engine:
+        common += ["--engine", engine]
+    want_dir, got_dir = _both_clis(artifact, "tree_%s_%s" % (hp_choice, engine),
+                                   common, [], ["--device", "cpu"])
+    # The bound prunes this small tree down to its root; CV keeps rules.
+    rule_files = {"model_rule_0_equiv.fasta"} if hp_choice == "cv" else set()
+    _assert_same_outputs(want_dir, got_dir, {"model.fasta"} | rule_files)
+    results = json.loads((got_dir / "results.json").read_text())
+    assert (results["model"]["n_rules"] >= 1) == (hp_choice == "cv")
+    assert "pruning_alpha" in results["cv"]["best_hp"]["values"]
+
+
+def test_port_cli_learn_tree_exact_engine_ends_with_an_error(artifact):
+    out = _run("grm_tpu_torch",
+               ["learn", "tree", "--dataset", "ds.h5", "--split", "sp",
+                "--engine", "device", "--device", "cpu",
+                "--output-dir", "never"], artifact, expect=1)
+    assert "not ported yet" in out and "ROADMAP" in out
+    assert not (artifact / "never").exists()

@@ -6,13 +6,16 @@ JAX, so it also runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX). Every
-comparison is exact: the kernels round as the plain versions do.
+comparison is exact: the kernels round as the plain versions do. The one
+exception is stated where it is made: the cross-entropy scores of
+``cart_sweep``, whose ``logf`` and ``torch.log`` come from two toolkits.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from grm_tpu_torch.ops import cart_sweep as cs
 from grm_tpu_torch.ops import popcount as pc
 from grm_tpu_torch.ops import scm_sweep as sw
 
@@ -141,3 +144,121 @@ def test_kernels_at_the_largest_genome_count(cuda):
     _same(got[1], want[1])
     _same(sw.scm_sweep_sbmax(matrix, *fits, k, 8192, excl),
           sw.scm_sweep_sbmax_plain(matrix, *fits, k, 8192, excl))
+
+
+def _frontier(rng, n, c, n_genomes, per_node):
+    """n nodes over c classes: disjoint class masks of random examples;
+    node 0's second class is empty."""
+    w = -(-n_genomes // 32)
+    masks = np.zeros((n, c, w), np.uint32)
+    pick = rng.rand(n, n_genomes) < 0.7
+    owner = rng.randint(0, c, size=(n, n_genomes))
+    if c > 1:
+        owner[0][owner[0] == 1] = 0
+    bits = np.uint32(1) << (31 - np.arange(n_genomes) % 32).astype(np.uint32)
+    for i in range(n):
+        for ci in range(c):
+            rows = np.where(pick[i] & (owner[i] == ci))[0]
+            np.bitwise_or.at(masks[i, ci], rows // 32, bits[rows])
+    n_node = np.unpackbits(masks.view(np.uint8), axis=2).sum(2).astype(np.int32)
+    shape = (n, c) if per_node else (c,)
+    priors = (rng.rand(*shape) + 0.1).astype(np.float32)
+    totals = rng.randint(n_genomes // 2, n_genomes, size=shape).astype(
+        np.float32)
+    return (torch.from_numpy(masks.view(np.int32)), torch.from_numpy(n_node),
+            torch.from_numpy(priors), torch.from_numpy(totals))
+
+
+def _ulps(a, b):
+    """Largest distance in float32 steps between two finite tensors."""
+    ia = a.cpu().view(torch.int32).long()
+    ib = b.cpu().view(torch.int32).long()
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def _cart_case(cuda, n, c, k, criterion, per_node, excl_on, seed,
+               n_genomes=342):
+    rng = np.random.RandomState(seed)
+    w = -(-n_genomes // 32)
+    matrix = _words(rng, (w, k)).to(cuda)
+    masks, n_node, priors, totals = [
+        t.to(cuda) for t in _frontier(rng, n, c, n_genomes, per_node)]
+    scale = (priors / totals).expand(n, c).contiguous()
+    excl = None
+    if excl_on:
+        excl = torch.from_numpy((rng.rand(k) < 0.3).astype(np.uint8)).to(cuda)
+    limit = k - 7
+    block = min(cs.BLOCK_K, k)
+    got = cs.cart_sweep_blocks(matrix, masks, n_node, scale, criterion, limit,
+                               block, excl)
+    want = cs.cart_sweep_blocks_plain(matrix, masks, n_node, scale, criterion,
+                                      limit, block, excl)
+    _same(got[1], want[1])
+    if criterion == "gini":
+        _same(got[0], want[0])
+    else:
+        # logf in the kernel and torch.log on the card are both CUDA's
+        # single-precision log, built by two toolkits: at most 2 ulps.
+        inf = torch.isinf(want[0])
+        assert torch.equal(torch.isinf(got[0]), inf)
+        assert _ulps(got[0][~inf], want[0][~inf]) <= 2
+    got = cs.cart_frontier_scores(matrix, masks, n_node, priors, totals,
+                                  criterion, limit, excl=excl)
+    want = cs.cart_frontier_scores_plain(matrix, masks, n_node, priors,
+                                         totals, criterion, limit, excl=excl)
+    _same(got[0], want[0])
+    # The reduced scores too, with (+inf, NO_COLUMN) at the same nodes.
+    if criterion == "gini":
+        _same(got[1], want[1])
+    else:
+        inf = torch.isinf(want[1])
+        assert torch.equal(torch.isinf(got[1]), inf)
+        assert torch.equal(got[0] == cs.NO_COLUMN, inf)
+        assert _ulps(got[1][~inf], want[1][~inf]) <= 2
+
+
+CART_CASES = [(n, c, k, criterion, per_node, excl_on)
+              for n, c in ((1, 2), (37, 2), (200, 2), (37, 3), (5, 8),
+                           (9, 6))  # 6 classes: the 8-class build, padded
+              for k in (100003, 3001)
+              for criterion in cs.CRITERIA
+              for per_node, excl_on in ((False, False), (True, True))]
+
+
+@pytest.mark.parametrize("n,c,k,criterion,per_node,excl_on", CART_CASES)
+def test_cart_sweep_kernel(cuda, n, c, k, criterion, per_node, excl_on):
+    _cart_case(cuda, n, c, k, criterion, per_node, excl_on, n + c + k)
+
+
+@pytest.mark.parametrize("criterion", cs.CRITERIA)
+def test_cart_sweep_kernel_at_the_largest_genome_count(cuda, criterion):
+    """5022 genomes (W = 157): 200 nodes x 2 classes of masks pass the
+    shared-memory budget, so nodes split over grid rows."""
+    _cart_case(cuda, 200, 2, 20001, criterion, True, True, 11,
+               n_genomes=5022)
+
+
+def test_cart_sweep_kernel_without_a_valid_split(cuda):
+    matrix = torch.zeros((11, 5000), dtype=torch.int32, device=cuda)
+    rng = np.random.RandomState(2)
+    masks, n_node, priors, totals = [
+        t.to(cuda) for t in _frontier(rng, 9, 2, 342, False)]
+    for criterion in cs.CRITERIA:
+        col, score = cs.cart_frontier_scores(matrix, masks, n_node, priors,
+                                             totals, criterion, 5000)
+        assert torch.isinf(score).all() and (col == cs.NO_COLUMN).all()
+
+
+def test_cart_sweep_kernel_rejects_too_many_classes(cuda):
+    rng = np.random.RandomState(3)
+    matrix = _words(rng, (11, 1000)).to(cuda)
+    masks, n_node, priors, totals = [
+        t.to(cuda) for t in _frontier(rng, 2, 9, 342, False)]
+    with pytest.raises(ValueError, match="at most 8 classes"):
+        cs.cart_frontier_scores(matrix, masks, n_node, priors, totals,
+                                "gini", 1000)
+    masks, n_node, priors, totals = [
+        t.to(cuda) for t in _frontier(rng, 2, 1, 342, False)]
+    with pytest.raises(ValueError, match="at least 2"):
+        cs.cart_frontier_scores(matrix, masks, n_node, priors, totals,
+                                "gini", 1000)

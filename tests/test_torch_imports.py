@@ -28,7 +28,7 @@ import torch
 assert not torch.cuda.is_available()
 from grm_tpu_torch.dataset import GrmDataset, from_numpy_artifact
 from grm_tpu_torch.device import resolve_device
-from grm_tpu_torch.learning.experiments import learn_SCM
+from grm_tpu_torch.learning.experiments import learn_CART, learn_SCM
 from grm_tpu_torch.ops.popcount import BitMatrix
 
 calls = [
@@ -36,6 +36,9 @@ calls = [
     lambda: BitMatrix(np.zeros((1, 4), np.uint32), 3),
     lambda: GrmDataset("unused.h5"),
     lambda: learn_SCM("unused.h5", "sp", "conjunction", 1.0),
+    lambda: learn_CART("unused.h5", "sp", "gini", 3, 2, {0: 1.0, 1: 1.0}),
+    lambda: learn_CART("unused.h5", "sp", "gini", 3, 2, {0: 1.0, 1: 1.0},
+                       engine="device-argmax"),
 ]
 for call in calls:
     try:
@@ -45,6 +48,10 @@ for call in calls:
     else:
         raise AssertionError("ran without CUDA")
 assert resolve_device("cpu").type == "cpu"
+for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
+               "parallel.cart_device", "parallel.cart_forest",
+               "learning.experiments.cart_experiment"):
+    assert "grm_tpu_torch." + module in names, module
 print("imported", len(names))
 '''
 
@@ -56,4 +63,4 @@ def test_port_imports_no_jax_and_requires_cuda():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 32  # every module was imported
