@@ -19,9 +19,12 @@ Phases (any failure exits non-zero and prints no result):
    cart_sweep at the same widths: N = 1, 37 and 200 nodes, C = 2 and 3
    classes, Gini and cross-entropy, shared and per-node priors, with and
    without an exclusion mask, a node with an empty class and a node with no
-   valid split. Gini: columns and scores equal. Cross-entropy: columns
-   equal, scores equal or at most 2 ulps apart (the kernel's logf and
-   torch.log come from two toolkits); the largest distance is printed.
+   valid split; and frontiers and depths that leave the kernel's tiles
+   ragged: N = 9, 17, 18 and (W = 157) 65 nodes, W = 12 (exactly three
+   128-bit steps) and W = 13 (a fourth), C = 3 and 5. Gini: columns and
+   scores equal. Cross-entropy: columns equal, scores equal or at most 2
+   ulps apart (the kernel's logf and torch.log come from two toolkits); the
+   largest distance is printed.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
@@ -43,10 +46,21 @@ Phases (any failure exits non-zero and prints no result):
    more argmax CART run under torch.profiler must give the same
    fingerprints, and give the device time by kernel and the device's busy
    share of the run.
-6. Each kernel at the main paths' shapes (cart_sweep at the largest
-   frontier phase 5 saw): its device time per call from torch.profiler
-   (CUDA events only if the profiler sees no device time), its plain
-   version timed once, and the least time the card could take (bound).
+6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
+   tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
+   POPC, the special-function unit and the two together, and whether the
+   machine code holds the tensor-core instruction (BMMA). Then each kernel
+   at the main paths' shapes (cart_sweep at the largest frontier phase 5
+   saw, by look-up scores with two classes and by direct scores with
+   three): its device time per call from torch.profiler (CUDA events only
+   if the profiler sees no device time), its plain version timed once, and
+   ``bound_ms``, the least time the card could take: the largest of the
+   bytes over the memory rate, the AND + POPC counting as a 1-bit product
+   at the measured tensor-core rate, and the divisions and logs of the
+   distinct splits at the measured special-function rate.
+   ``bound_ms_popc`` keeps, for comparison with earlier readings, the
+   bound with the counting and one score per (node, column) on the scalar
+   POPC pipe.
 
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -107,7 +121,7 @@ KERNEL_FUNCTIONS = {
     "popcount_colsum_pairs": "colsum_pairs_kernel",
     "scm_sweep_argmax": "scm_sweep_kernel<0>",
     "scm_sweep_sbmax": "scm_sweep_kernel<1>",
-    "cart_sweep": "cart_sweep_kernel",
+    "cart_sweep": ("cart_sweep_kernel", "cart_sweep_table_kernel"),
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -507,6 +521,22 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
     # so the nodes split over grid rows.
     for criterion in CART_CRITERIA:
         cart_case(m, wide, 200, 2, criterion, True, True)
+    # Frontiers and depths that leave the kernel's tiles ragged: nodes in
+    # groups of 4 and passes of a few groups, depth in steps of 4 words, 16
+    # columns a warp (K = 3001 and the limit K - 5 are multiples of neither
+    # 8 nor 16).
+    small = matrix[:, :3001].contiguous()
+    for criterion in CART_CRITERIA:
+        for n in (9, 17, 18):
+            for c in (2, 3, 5):
+                for excl_on in (False, True):
+                    cart_case(small, n_genomes, n, c, criterion, True,
+                              excl_on)
+        cart_case(m, wide, 65, 2, criterion, True, True)
+        for genomes in (384, 400):  # W = 12: three whole steps; W = 13
+            deep = _words(rng, (-(-genomes // 32), 3001), device)
+            for n, c in ((18, 2), (9, 3)):
+                cart_case(deep, genomes, n, c, criterion, False, True)
     return worst, ulps
 
 
@@ -533,13 +563,18 @@ def _device_us(event):
 
 
 def _is_function(key, function):
-    return re.search(r"(^|\W)%s(\W|$)" % re.escape(function), key) is not None
+    """Whether the profiler's kernel name ``key`` is ``function`` or, for a
+    tuple, one of them."""
+    names = (function,) if isinstance(function, str) else function
+    return any(re.search(r"(^|\W)%s(\W|$)" % re.escape(f), key) is not None
+               for f in names)
 
 
 def device_ms(fn, reps, function):
     """Device time per call of ``fn``: the time torch.profiler records for
-    the CUDA function ``function`` over ``reps`` calls, divided by
-    ``reps``, so that the host's gaps between launches do not count.
+    the CUDA function ``function`` (or each of a tuple of them) over
+    ``reps`` calls, divided by the launches it recorded, so that the host's
+    gaps between launches do not count.
     Returns (ms, how it was timed); CUDA events time the calls, gaps
     included, when the profiler records no device time."""
     import torch
@@ -552,18 +587,69 @@ def device_ms(fn, reps, function):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if _is_function(e.key, function))
-    if us > 0:
-        return us / 1e3 / reps, "profiler"
+    # Per CUDA function the mean time of the launches the profiler recorded
+    # (it can drop one) times the launches a call makes, summed over the
+    # functions a call launches.
+    ms = sum(_device_us(e) / 1e3 / e.count * max(1, round(e.count / reps))
+             for e in prof.key_averages()
+             if _is_function(e.key, function) and e.count > 0)
+    if ms > 0:
+        return ms, "profiler"
     return time_cuda(fn, reps), "cuda events"
 
 
-def time_kernels(bm, popc_per_s, device, paths, frontier):
+def probe_card(popc_per_s):
+    """Phase 6, first: the card's measured rates. Prints them and returns
+    the 1-bit tensor-core rate in bit-ANDs per second (the better of the
+    two ``mma`` shapes) and the special-function unit's instructions per
+    second."""
+    from grm_tpu_torch.ops import bmma_probe
+
+    sass = bmma_probe.probe_sass()
+    rates = bmma_probe.probe_rates()
+    b1 = max(rates["bmma_k256"]["per_s"], rates["bmma_k128"]["per_s"])
+    scalar = rates["popc"]["per_s"]
+    if sass is None:
+        how = "machine code not read (no cuobjdump)"
+    elif sass["BMMA"] > 0:
+        how = ("compiled to the tensor-core instruction (%d BMMA in the "
+               "probe's SASS)" % sass["BMMA"])
+    else:
+        how = "lowered to other code (no BMMA in the probe's SASS)"
+    # One POPC and one special function a round: the sum of their times if
+    # they share one pipe, the larger if they do not.
+    alone = 32 / scalar + 1 / rates["sfu"]["per_s"]
+    both = 1 / rates["popc+sfu"]["per_s"]
+    log(json.dumps({
+        "probe": "b1 AND+POPC", "sass": sass, "mma": how,
+        "bit_ands_per_s": {k: rates[k]["per_s"]
+                           for k in ("bmma_k256", "bmma_k128", "popc")},
+        "tensor_over_scalar": b1 / scalar,
+        "scalar_popc_per_s": scalar / 32,
+        "scalar_popc_per_s_at_16_per_clock": popc_per_s,
+        "sfu_per_s": rates["sfu"]["per_s"],
+        "popc_and_sfu_rounds_per_s": rates["popc+sfu"]["per_s"],
+        "popc_and_sfu_time_over_sum_of_both": both / alone,
+        "ms": {k: v["ms"] for k, v in rates.items()}}))
+    return b1, rates["sfu"]["per_s"]
+
+
+def distinct_splits(n_node, k):
+    """How many different splits k columns can give the nodes of a
+    frontier: a node with n_c examples of class c has prod(n_c + 1) vectors
+    of left counts, and its score is a function of that vector alone."""
+    per_node = np.prod(n_node.cpu().numpy().astype(np.float64) + 1, axis=1)
+    return float(np.minimum(per_node, k).sum())
+
+
+def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
+                 frontier):
     """Phase 6: each kernel at the main paths' shapes against its plain
-    version on the same inputs, with its bound; one JSON line each, with
+    version on the same inputs, with its bounds; one JSON line each, with
     its launches on each main path. ``frontier`` is the number of nodes
-    cart_sweep is timed at."""
+    cart_sweep is timed at, ``b1_per_s`` and ``sfu_per_s`` the measured
+    rates of the 1-bit tensor-core product and the special-function unit,
+    ``popc_per_s`` the scalar POPC pipe's rate by the 16-a-clock rule."""
     import torch
 
     from grm_tpu_torch.ops import cart_sweep as cs
@@ -575,13 +661,14 @@ def time_kernels(bm, popc_per_s, device, paths, frontier):
     w, k = matrix.shape
     rows = {}
 
-    def bound(nbytes, popc, special=0):
-        """The largest of the byte time, the popc time and the
-        special-function time (divisions and logs, which run at the popc
-        rate): (ms, "bytes" or "operations", which of the three)."""
+    def bound(nbytes, popc, special):
+        """The least time for ``nbytes`` moved, ``popc`` AND + POPC word
+        operations (32 bit-ANDs each, a 1-bit product on the tensor cores)
+        and ``special`` divisions and logs: (ms, "bytes" or "operations",
+        which of the three is the largest)."""
         times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "popc": popc / popc_per_s * 1e3,
-                 "special-function": special / popc_per_s * 1e3}
+                 "b1 product": 32 * popc / b1_per_s * 1e3,
+                 "special-function": special / sfu_per_s * 1e3}
         what = max(times, key=times.get)
         return (times[what], "bytes" if what == "bytes" else "operations",
                 what)
@@ -597,15 +684,20 @@ def time_kernels(bm, popc_per_s, device, paths, frontier):
         return compare
 
     def row(name, kernel, plain, nbytes, popc, reps, shape, special=0,
-            compare=None, key=None):
+            special_popc=0, compare=None, key=None):
         err = (compare or exact(name))(kernel(), plain())
         ms, timed_by = device_ms(kernel, reps, KERNEL_FUNCTIONS[name])
         event_ms = time_cuda(kernel, reps)
         plain_ms = time_cuda(plain, 1)
         bound_ms, bound_by, bound_what = bound(nbytes, popc, special)
+        # As up to now: counting, and ``special_popc`` divisions and logs
+        # (one score per node and column), at the scalar POPC rate.
+        popc_ms = max(nbytes / HBM_BYTES_PER_S,
+                      max(popc, special_popc) / popc_per_s) * 1e3
         rows[key or name] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_ms_popc": popc_ms}
         log(json.dumps({"kernel": key or name, "shape": shape,
                         **rows[key or name], "bound_what": bound_what,
                         "timed_by": timed_by, "event_ms": event_ms,
@@ -646,23 +738,31 @@ def time_kernels(bm, popc_per_s, device, paths, frontier):
         4 * w * k + 120 * (8 * w + 12) + 4 * nsb * 120, 2 * 120 * w * k, 5,
         "W=%d K=%d F=120 sb=8192" % (w, k))
     # The argmax CART engine's largest frontier: per-node priors (a forest
-    # of fold and master trees), two classes, no exclusion mask.
-    n, c = frontier, 2
-    masks, n_node, priors, totals = frontier_inputs(rng, n, c, bm.n_rows,
-                                                    True, device)
-    scale = (priors / totals).contiguous()
+    # of fold and master trees), no exclusion mask. Two classes, as on the
+    # main path, are scored by look-up; three classes by the direct scores
+    # that every frontier of three or more classes takes.
+    n = frontier
     nb = -(-k // cs.BLOCK_K)
-    for criterion in CART_CRITERIA:
-        args = (matrix, masks, n_node, scale, criterion, k, cs.BLOCK_K)
-        row("cart_sweep", lambda: cs.cart_sweep_blocks(*args),
-            lambda: cs.cart_sweep_blocks_plain(*args),
-            4 * w * k + n * c * (4 * w + 8) + 8 * nb * n, n * c * w * k, 5,
-            "W=%d K=%d N=%d C=%d %s block=%d" % (w, k, n, c, criterion,
-                                                 cs.BLOCK_K),
-            special=n * k * (2 if criterion == "gini" else 4 * c),
-            compare=lambda got, want: compare_cart_blocks(got, want,
-                                                          criterion)[0],
-            key="cart_sweep:" + criterion)
+    for c, how in ((2, ""), (3, "direct:")):
+        masks, n_node, priors, totals = frontier_inputs(rng, n, c, bm.n_rows,
+                                                        True, device)
+        scale = (priors / totals).contiguous()
+        if bool(cs.table_plan(n, c, w)) != (c == 2):
+            raise AssertionError("cart_sweep: %d classes are not scored %s"
+                                 % (c, how or "by look-up"))
+        splits = distinct_splits(n_node, k)
+        for criterion in CART_CRITERIA:
+            args = (matrix, masks, n_node, scale, criterion, k, cs.BLOCK_K)
+            per_split = 2 if criterion == "gini" else 4 * c
+            row("cart_sweep", lambda: cs.cart_sweep_blocks(*args),
+                lambda: cs.cart_sweep_blocks_plain(*args),
+                4 * w * k + n * c * (4 * w + 8) + 8 * nb * n, n * c * w * k,
+                5, "W=%d K=%d N=%d C=%d %s block=%d; %.0f distinct splits"
+                % (w, k, n, c, criterion, cs.BLOCK_K, splits),
+                special=splits * per_split, special_popc=n * k * per_split,
+                compare=lambda got, want: compare_cart_blocks(
+                    got, want, criterion)[0],
+                key="cart_sweep:" + how + criterion)
     return rows
 
 
@@ -701,6 +801,28 @@ def profile_learn(what, run_once, wall, want):
 
 # -- phases -------------------------------------------------------------------
 
+def ptxas_summary(text):
+    """(function, registers, spills) per kernel function from the output of
+    ``nvcc -Xptxas -v``; a template instance is named with its integer
+    and boolean arguments, as in ``cart_sweep_kernel<2, 1, 0>``."""
+    out = []
+    function = spills = "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([A-Za-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                             m.group(1))
+            function = m.group(1) if name is None else name.group(1) + (
+                "<%s>" % ", ".join(re.findall(r"L[ib](\d+)E", name.group(2)))
+                if name.group(2) else "")
+        elif "spill" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((function, m.group(1), spills))
+    return out
+
+
 def nvidia_smi(fields):
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=" + fields, "--format=csv,noheader"],
@@ -729,9 +851,8 @@ def run(seed):
     log("[2] built %s in %.2f s" % (built or "nothing (cached)",
                                      time.time() - t0))
     for src, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("    %s: %s" % (src, line.strip()))
+        for function, regs, spills in ptxas_summary(text):
+            log("    %s: %s: %s registers, %s" % (src, function, regs, spills))
 
     # 3. kernels against their plain versions
     t0 = time.time()
@@ -882,9 +1003,11 @@ def run(seed):
                   fingerprints["tree-device-argmax"])
 
     # 6. kernel times at the main paths' shapes
-    log("[6] kernel times at the main paths' shapes:")
+    log("[6] the card's measured rates, then kernel times at the main "
+        "paths' shapes:")
     bm = GrmDataset(mem, device=device).bit_matrix()
-    rows = time_kernels(bm, popc_per_s, device, paths,
+    b1_per_s, sfu_per_s = probe_card(popc_per_s)
+    rows = time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                         max(n for n, _ in frontiers))
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
@@ -893,12 +1016,17 @@ def run(seed):
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path}
         if kname == "cart_sweep":
-            # Gini, the CLI's default criterion, under the common keys; the
-            # error is the larger of the two criteria's.
-            r, x = rows["cart_sweep:gini"], rows["cart_sweep:cross-entropy"]
-            entry.update(r, max_abs_err=max(r["max_abs_err"],
-                                            x["max_abs_err"]),
-                         cross_entropy=x)
+            # Gini by look-up (the main path's classes and the CLI's default
+            # criterion) under the common keys; the error is the largest of
+            # the four rows'.
+            r = rows["cart_sweep:gini"]
+            more = {"cross_entropy": rows["cart_sweep:cross-entropy"],
+                    "direct_gini": rows["cart_sweep:direct:gini"],
+                    "direct_cross_entropy":
+                        rows["cart_sweep:direct:cross-entropy"]}
+            entry.update(r, max_abs_err=max(
+                [r["max_abs_err"]] + [x["max_abs_err"]
+                                      for x in more.values()]), **more)
         else:
             entry.update(rows[kname])
         kernels.append(entry)

@@ -4,8 +4,9 @@ Each ``grm_tpu_torch/csrc/<name>.cu`` compiles, at the first CUDA use, into
 its own shared library with a plain C interface (``-gencode
 arch=compute_90a,code=sm_90a``). Libraries land in
 ``grm_tpu_torch/_kernels/`` (listed in ``.gitignore``) under a name keyed
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. One ``nvcc`` per source, all started together. A
+by a hash of the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. One ``nvcc`` per source, all started together. A
 failed build raises: there is no fallback to the plain PyTorch versions.
 
 Every kernel wrapper adds one to its entry of :data:`launches` where it
@@ -18,16 +19,17 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 __all__ = ["library", "build_all", "check", "launches", "cart_frontiers",
-           "reset_launches", "BUILD_LOG"]
+           "reset_launches", "sass_opcodes", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels"
-SOURCES = ("popcount_colsum", "scm_sweep", "cart_sweep")
+SOURCES = ("popcount_colsum", "scm_sweep", "cart_sweep", "bmma_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -68,10 +70,11 @@ def _nvcc():
 
 
 def _lib_path(name):
-    digest = hashlib.sha256(
-        (CSRC / (name + ".cu")).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    digest = hashlib.sha256((CSRC / (name + ".cu")).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def build_all():
@@ -122,6 +125,20 @@ def library(name, signatures):
             getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return lib
+
+
+def sass_opcodes(name, opcodes):
+    """How often each of ``opcodes`` (prefixes such as "BMMA") occurs in the
+    machine code of the built library ``name``, by ``cuobjdump -sass`` from
+    the toolkit that holds nvcc; None where the toolkit has no cuobjdump."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?%s\b"
+                               % re.escape(op), text, re.M))
+            for op in opcodes}
 
 
 def check(status, what):

@@ -3,12 +3,23 @@ presence-rule split with the least sum of both children's altered-prior
 impurity, in one pass over the packed bit matrix.
 
 Port of ``grm_tpu/ops/pallas_cart_sweep.py``. One CUDA kernel,
-``csrc/cart_sweep.cu``, scores every (node, column) pair from
-register-resident class counts and reduces each block of columns to one
-(least score, lowest column) pair per node; :func:`cart_frontier_scores`
-adds the reduction over blocks in torch. Unlike the Pallas kernel it takes
-the column-exclusion mask (the k-mer blacklist) itself, so the argmax
-engine has one scorer with and without a blacklist.
+``csrc/cart_sweep.cu``, counts ``left = masks AND-POPC matrix`` as a 1-bit
+matrix product on the tensor cores (``csrc/bmma_tile.cuh``), scores every
+(node, column) pair from the accumulators and reduces each block of columns
+to one (least score, lowest column) pair per node;
+:func:`cart_frontier_scores` adds the reduction over blocks in torch. Unlike
+the Pallas kernel it takes the column-exclusion mask (the k-mer blacklist)
+itself, so the argmax engine has one scorer with and without a blacklist.
+
+The kernel reads the class masks as the product's B operand, in the order
+its fragments want them: :func:`pack_mask_tiles` lays them out as tiles of
+4 nodes x 1 class pair x 128 bits of depth, with zeros for the nodes,
+classes and words that pad a tile. For two classes the kernel does not
+compute a score per (node, column): a node with (n0, n1) examples has only
+(n0 + 1)(n1 + 1) distinct splits, so the kernel first fills a score table
+per node with the same device function and then looks each score up
+(:func:`table_plan` says when; more classes, and tables past the budget,
+are scored directly).
 
 Numerics follow ``grm_tpu.parallel.cart_device._best_split``: float32,
 ``scale = priors / totals`` divided once, ``p = scale * count``, classes
@@ -42,22 +53,92 @@ __all__ = [
     "cart_sweep_blocks_plain",
     "cart_frontier_scores",
     "cart_frontier_scores_plain",
+    "frontier_plan",
+    "pack_mask_tiles",
+    "table_plan",
+    "tile_plan",
 ]
 
 BLOCK_K = 4096
 CRITERIA = ("gini", "cross-entropy")
-_CLASS_COUNTS = (2, 3, 4, 8)  # the kernel's instantiations
+_CLASS_COUNTS = (2, 3, 4, 6, 8)  # the kernel's instantiations
 MAX_CLASSES = _CLASS_COUNTS[-1]
 NO_COLUMN = 2**31 - 1  # the column of a (block, node) with no valid split
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "grm_cart_sweep": (
-        [_I, _P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P], _I),
+        [_I, _P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _P,
+         _P, _P], _I),
     "grm_cart_sweep_smem_bytes": ([_I, _I, _I], _L),
 }
-_SMEM_BUDGET = 96 << 10  # two blocks per SM; nodes past it go to grid rows
+_SMEM_BUDGET = 64 << 10  # three blocks per SM; nodes past it go to grid rows
 _SMEM_MAX = 227 << 10
-_NODE_STEP = 8  # a multiple of the kernel's node groups (8 and 4)
+_TABLE_BUDGET = 64 << 20  # bytes of score tables a launch may allocate
+TILE_NODES = 4  # nodes of one mask tile: 8 masks, a class pair per node
+TILE_WORDS = 4  # 32-bit words of depth per tensor-core step (128 bits)
+TILE_LANES = 32
+
+
+def tile_plan(n, c, w):
+    """(groups, pairs, steps) of the mask tiles of n nodes x c classes x w
+    words: nodes in groups of 4, classes in pairs, words in steps of 4."""
+    return -(-n // TILE_NODES), -(-c // 2), -(-w // TILE_WORDS)
+
+
+def pack_mask_tiles(class_masks):
+    """The (N, C, W) class masks in the kernel's fragment order: (groups,
+    pairs, steps, 32) int32 with word ``[g, q, s, 4 * (2 * j + e) + t]`` =
+    word ``4 * s + t`` of the mask of node ``4 * g + j``, class ``2 * q +
+    e``, and 0 where that node, class or word does not exist."""
+    n, c, w = class_masks.shape
+    groups, pairs, steps = tile_plan(n, c, w)
+    padded = torch.nn.functional.pad(
+        class_masks, (0, steps * TILE_WORDS - w, 0, 2 * pairs - c,
+                      0, groups * TILE_NODES - n))
+    return (padded.view(groups, TILE_NODES, pairs, 2, steps, TILE_WORDS)
+            .permute(0, 2, 4, 1, 3, 5)
+            .reshape(groups, pairs, steps, TILE_LANES).contiguous())
+
+
+def _smem_bytes(w, groups, c):
+    """Shared memory of one block of ``csrc/cart_sweep.cu`` that holds
+    ``groups`` groups of 4 nodes: their mask tiles, their counts and scales,
+    and the reduction scratch of 8 warps x 32 node slots."""
+    _, pairs, steps = tile_plan(TILE_NODES * groups, c, w)
+    return (4 * groups * pairs * steps * TILE_LANES
+            + 2 * 4 * groups * TILE_NODES * c + 2 * 4 * 8 * 32)
+
+
+def frontier_plan(n, c, w):
+    """How a frontier of n nodes x c classes x w words goes to the kernel:
+    (the class count of the kernel's instantiation, groups of 4 nodes per
+    grid row, shared-memory bytes of a block). Raises ValueError for a shape
+    the kernel does not take."""
+    if c < 2 or c > MAX_CLASSES:
+        raise ValueError("the CART sweep kernel takes at least 2 and at most "
+                         "%d classes, got %d" % (MAX_CLASSES, c))
+    c_inst = min(x for x in _CLASS_COUNTS if x >= c)
+    groups = gpb = tile_plan(n, c, w)[0]
+    while gpb > 1 and _smem_bytes(w, gpb, c_inst) > _SMEM_BUDGET:
+        gpb = -(-gpb // 2)
+    if _smem_bytes(w, gpb, c_inst) > _SMEM_MAX:
+        raise ValueError("%d words x %d classes of masks do not fit one "
+                         "block's shared memory" % (w, c))
+    if -(-groups // gpb) > 65535:
+        raise ValueError("too many nodes for one launch")
+    return c_inst, gpb, _smem_bytes(w, gpb, c_inst)
+
+
+def table_plan(n, c, w):
+    """Entries per node of the kernel's score tables for a frontier of n
+    nodes x c classes x w words, or 0 where the kernel scores directly. A
+    two-class node with (n0, n1) examples has (n0 + 1)(n1 + 1) distinct
+    child scores, at most (16 w + 1)^2 since n0 + n1 <= 32 w; the tables are
+    kept where the whole frontier's fit the budget."""
+    cap = (16 * w + 1) ** 2
+    if c != 2 or n > 65535 or 4 * n * cap > _TABLE_BUDGET:
+        return 0
+    return cap
 
 
 def _check_frontier(matrix, class_masks, n_node, scale, criterion, excl):
@@ -161,45 +242,54 @@ def cart_sweep_blocks(matrix, class_masks, n_node, scale, criterion, limit,
                                        criterion, limit, block, excl)
     w, k = matrix.shape
     n, c = class_masks.shape[:2]
-    if c < 2 or c > MAX_CLASSES:
-        raise ValueError("the CART sweep kernel takes at least 2 and at most "
-                         "%d classes, got %d" % (MAX_CLASSES, c))
     if k >= NO_COLUMN:
         raise ValueError("the CART sweep kernel indexes columns in int32")
+    c_inst, gpb, smem = frontier_plan(max(n, 1), c, w)
     nb = -(-k // block)
     out_s = torch.empty((nb, n), dtype=torch.float32, device=matrix.device)
     out_c = torch.empty((nb, n), dtype=torch.int32, device=matrix.device)
     if nb == 0 or n == 0:
         return out_s, out_c
     lib = _build.library("cart_sweep", _SIGNATURES)
+    if lib.grm_cart_sweep_smem_bytes(w, gpb, c_inst) != smem:
+        raise RuntimeError("cart_sweep: the kernel's shared-memory layout is "
+                           "not the wrapper's")
     # A class count between two instantiations is filled up with empty
     # classes (mask, count and scale 0): they add +0 to every sum, so the
     # scores stay bit for bit what the plain version gives for c classes.
-    c_pad = min(x for x in _CLASS_COUNTS if x >= c) - c
-    if c_pad:
-        class_masks = torch.nn.functional.pad(class_masks, (0, 0, 0, c_pad))
-        n_node = torch.nn.functional.pad(n_node, (0, c_pad))
-        scale = torch.nn.functional.pad(scale, (0, c_pad))
-        c += c_pad
-    npb = -(-n // _NODE_STEP) * _NODE_STEP
-    while npb > _NODE_STEP \
-            and lib.grm_cart_sweep_smem_bytes(w, npb, c) > _SMEM_BUDGET:
-        npb = -(-(npb // 2) // _NODE_STEP) * _NODE_STEP
-    if lib.grm_cart_sweep_smem_bytes(w, npb, c) > _SMEM_MAX:
-        raise ValueError("%d words x %d classes of masks do not fit one "
-                         "block's shared memory" % (w, c))
-    if -(-n // npb) > 65535:
-        raise ValueError("too many nodes for one launch")
+    if c_inst > c:
+        class_masks = torch.nn.functional.pad(class_masks,
+                                              (0, 0, 0, c_inst - c))
+        n_node = torch.nn.functional.pad(n_node, (0, c_inst - c))
+        scale = torch.nn.functional.pad(scale, (0, c_inst - c))
+    tiles = pack_mask_tiles(class_masks)
     # Held in locals until after the launch, so that no copy is freed early.
-    args = [t.contiguous() for t in (class_masks, n_node, scale)]
+    args = [tiles, n_node.contiguous(), scale.contiguous()]
     excl_c = None if excl is None else excl.contiguous()
+    # The score tables: node i takes min((n0 + 1)(n1 + 1), cap) entries from
+    # table_off[i] on; the kernel fills them before it sweeps. The buffer
+    # holds the entries in use (read back from the device: one small
+    # synchronising copy a call), not the n * cap the plan allows.
+    cap = table_plan(n, c, w)
+    table = table_off = None
+    if cap:
+        sizes = ((args[1][:, 0].long() + 1) * (args[1][:, 1].long() + 1)
+                 ).clamp(max=cap)
+        ends = sizes.cumsum(0)
+        table_off = (ends - sizes).to(torch.int32)
+        table = torch.empty(int(ends[-1]), dtype=torch.float32,
+                            device=matrix.device)
     with torch.cuda.device(matrix.device):
         _build.check(lib.grm_cart_sweep(
             CRITERIA.index(criterion), matrix.data_ptr(), w, k,
-            min(int(limit), k), *[t.data_ptr() for t in args], n, c, npb,
+            min(int(limit), k), *[t.data_ptr() for t in args], n, c_inst, gpb,
             None if excl_c is None else excl_c.data_ptr(), int(block),
+            None if table is None else table.data_ptr(),
+            None if table is None else table_off.data_ptr(), cap,
             out_s.data_ptr(), out_c.data_ptr(), _stream(matrix)),
             "cart_sweep")
+        # One call of the C entry point: with tables that is two CUDA
+        # launches, the table fill and then the sweep.
         _build.launches["cart_sweep"] += 1
         _build.cart_frontiers.append((n, criterion))
     return out_s, out_c

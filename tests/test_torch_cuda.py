@@ -238,6 +238,42 @@ def test_cart_sweep_kernel_at_the_largest_genome_count(cuda, criterion):
                n_genomes=5022)
 
 
+# Frontiers, depths and class counts that leave the kernel's tiles ragged:
+# nodes in groups of 4 and passes of a few groups, depth in 128-bit steps (342
+# genomes: 11 words, 3 steps with a ragged last; 384: exactly 3; 400: a
+# fourth), 16 columns a warp (K = 3001 and 100003 are multiples of neither 8
+# nor 16, and the limit K - 7 falls inside a block).
+RAGGED_CART_CASES = [(n, c, 3001, criterion, excl_on, n_genomes)
+                     for n in (9, 17, 18)
+                     for c in (2, 3, 5)
+                     for criterion in cs.CRITERIA
+                     for excl_on in (False, True)
+                     for n_genomes in (342,)] + [
+    (n, c, k, criterion, excl_on, n_genomes)
+    for n_genomes in (384, 400)
+    for n, c, k in ((18, 2, 100003), (9, 3, 3001), (17, 5, 3001))
+    for criterion in cs.CRITERIA
+    for excl_on in (False, True)]
+
+
+@pytest.mark.parametrize("n,c,k,criterion,excl_on,n_genomes",
+                         RAGGED_CART_CASES)
+def test_cart_sweep_kernel_ragged_tiles(cuda, n, c, k, criterion, excl_on,
+                                        n_genomes):
+    _cart_case(cuda, n, c, k, criterion, True, excl_on, n + c + k + n_genomes,
+               n_genomes=n_genomes)
+
+
+@pytest.mark.parametrize("excl_on", [False, True])
+@pytest.mark.parametrize("criterion", cs.CRITERIA)
+def test_cart_sweep_kernel_ragged_at_the_largest_genome_count(cuda, criterion,
+                                                              excl_on):
+    """5022 genomes (W = 157: 40 steps, the last one word deep) x 65 nodes:
+    17 groups, the last with one node."""
+    _cart_case(cuda, 65, 2, 20001, criterion, True, excl_on, 13,
+               n_genomes=5022)
+
+
 def test_cart_sweep_kernel_without_a_valid_split(cuda):
     matrix = torch.zeros((11, 5000), dtype=torch.int32, device=cuda)
     rng = np.random.RandomState(2)
