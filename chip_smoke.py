@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result):
    at W = 11, K = 1,000,003, C = 1, 2, 10, 12; the pair-batched entry with
    ragged offsets; both scm_sweep epilogues at F = 100 and 128, K ragged and
    K below one block, the published p grid and dyadic p, with and without
-   an exclusion mask; and at the largest published genome count (W = 157).
+   an exclusion mask; at the largest published genome count (W = 157); and
+   fit counts, depths and widths that leave the tensor-core tiles ragged:
+   F = 1, 3, 5, 101 and 256, W = 1, 12, 13 and 157, K = 5001 with the limit
+   inside it, a 16-column tile banned in both rows.
    cart_sweep at the same widths: N = 1, 37 and 200 nodes, C = 2 and 3
    classes, Gini and cross-entropy, shared and per-node priors, with and
    without an exclusion mask, a node with an empty class and a node with no
@@ -42,14 +45,17 @@ Phases (any failure exits non-zero and prints no result):
    criteria, depth 10, plus ``write_cart_outputs``; and
    ``learn_CART(engine="host")`` with Gini, depth 3. Each path must launch
    the kernels it is built on (PATH_KERNELS) and learn a model with at
-   least one rule and finite importances. One more exact SCM run and one
-   more argmax CART run under torch.profiler must give the same
-   fingerprints, and give the device time by kernel and the device's busy
-   share of the run.
+   least one rule and finite importances. One more SCM run through each
+   device engine and one more argmax CART run under torch.profiler must
+   give the same fingerprints, and give the device time by kernel and the
+   device's busy share of the run.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
-   machine code holds the tensor-core instruction (BMMA). Then each kernel
+   machine code holds the tensor-core instruction (BMMA); the BMMA, POPC
+   and IMMA counts of the scm_sweep and cart_sweep libraries (the run fails
+   if scm_sweep holds no BMMA or any POPC; skipped, and said, where the
+   toolkit has no cuobjdump). Then each kernel
    at the main paths' shapes (cart_sweep at the largest frontier phase 5
    saw, by look-up scores with two classes and by direct scores with
    three): its device time per call from torch.profiler (CUDA events only
@@ -60,7 +66,10 @@ Phases (any failure exits non-zero and prints no result):
    distinct splits at the measured special-function rate.
    ``bound_ms_popc`` keeps, for comparison with earlier readings, the
    bound with the counting and one score per (node, column) on the scalar
-   POPC pipe.
+   POPC pipe. Both scm_sweep shapes are also timed under a k-mer blacklist
+   (a banned k-mer bans its presence and its absence rule) of 0.1%, 1% and
+   20% of the columns at random, and with 1% of the presence rules banned
+   alone (the kernel's one-tile path), each equal to its plain version.
 
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -119,8 +128,8 @@ PATH_KERNELS = {
 KERNEL_FUNCTIONS = {
     "popcount_colsum": "colsum_kernel",
     "popcount_colsum_pairs": "colsum_pairs_kernel",
-    "scm_sweep_argmax": "scm_sweep_kernel<0>",
-    "scm_sweep_sbmax": "scm_sweep_kernel<1>",
+    "scm_sweep_argmax": "scm_sweep_kernel<0,",
+    "scm_sweep_sbmax": "scm_sweep_kernel<1,",
     "cart_sweep": ("cart_sweep_kernel", "cart_sweep_table_kernel"),
 }
 CART_CRITERIA = ("gini", "cross-entropy")
@@ -466,6 +475,36 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
            "W=157 F=128")
     record("scm_sweep_sbmax", sw.scm_sweep_sbmax(m, *fits, kw, 8192, excl),
            sw.scm_sweep_sbmax_plain(m, *fits, kw, 8192, excl), "W=157 F=128")
+    # Fit counts, depths and widths that leave the tensor-core kernel's
+    # tiles ragged: fits in groups of 4 and passes of 8 to 32 groups (256
+    # fits: two passes, or grid rows at W = 157), W = 1, 12, 13 and 157 (128-
+    # bit steps, chunks of 4 steps), K = 5001 (a multiple of neither 16 nor
+    # the block) with the limit inside it, a column that every example has
+    # and one that none has, and a 16-column tile banned in both rows.
+    kr = 5001
+    for i, (f, genomes) in enumerate((f, genomes)
+                                     for f in (1, 3, 5, 101, 256)
+                                     for genomes in (20, 384, 400, 5022)):
+        rag = _words(rng, (-(-genomes // 32), kr), device)
+        rag[:, 7] = -1
+        rag[:, 8] = 0
+        grid = P_GRID if i % 2 else [0.5, 1, 2, 4]
+        fits = fit_inputs(rng, f, genomes, grid, device)
+        ex = (rng.rand(2, kr) < 0.2).astype(np.uint8)
+        ex[:, 32:48] = 1
+        ex = torch.from_numpy(ex).to(device)
+        for e in (None, ex):
+            what = "ragged F=%d W=%d excl=%s" % (f, rag.shape[0],
+                                                 e is not None)
+            record("scm_sweep_argmax",
+                   sw.scm_sweep_argmax_blocks(rag, *fits, kr - 7, sw.BLOCK_K,
+                                              e),
+                   sw.scm_sweep_argmax_blocks_plain(rag, *fits, kr - 7,
+                                                    sw.BLOCK_K, e), what)
+            record("scm_sweep_sbmax",
+                   sw.scm_sweep_sbmax(rag, *fits, kr - 7, 2048, e),
+                   sw.scm_sweep_sbmax_plain(rag, *fits, kr - 7, 2048, e),
+                   what)
 
     ulps = {crit: 0 for crit in CART_CRITERIA}
 
@@ -634,6 +673,24 @@ def probe_card(popc_per_s):
     return b1, rates["sfu"]["per_s"]
 
 
+def machine_code():
+    """Phase 6: how often the tensor-core (BMMA), scalar popcount (POPC) and
+    integer matrix (IMMA) instructions occur in the sweeps' machine code.
+    Fails unless scm_sweep counts on the tensor cores alone."""
+    from grm_tpu_torch.ops import _build
+
+    for name in ("scm_sweep", "cart_sweep"):
+        ops = _build.sass_opcodes(name, ("BMMA", "POPC", "IMMA"))
+        if ops is None:
+            log("    %s: machine code not read (the toolkit has no "
+                "cuobjdump)" % name)
+            continue
+        log(json.dumps({"sass": name, **ops}))
+        if name == "scm_sweep" and (ops["BMMA"] == 0 or ops["POPC"] > 0):
+            raise AssertionError("scm_sweep's machine code holds %d BMMA and "
+                                 "%d POPC" % (ops["BMMA"], ops["POPC"]))
+
+
 def distinct_splits(n_node, k):
     """How many different splits k columns can give the nodes of a
     frontier: a node with n_c examples of class c has prod(n_c + 1) vectors
@@ -721,22 +778,49 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
         2 * n_pairs * width * w, 20,
         "W=%d P=%d width=%d" % (w, n_pairs, width))
     # The argmax CV: 2 model types x 10 p x 5 folds = 100 fits.
-    fits = fit_inputs(rng, 100, bm.n_rows, P_GRID, device)
+    fits_cv = fit_inputs(rng, 100, bm.n_rows, P_GRID, device)
     nb = -(-k // sw.BLOCK_K)
     row("scm_sweep_argmax",
-        lambda: sw.scm_sweep_argmax_blocks(matrix, *fits, k, sw.BLOCK_K),
-        lambda: sw.scm_sweep_argmax_blocks_plain(matrix, *fits, k,
+        lambda: sw.scm_sweep_argmax_blocks(matrix, *fits_cv, k, sw.BLOCK_K),
+        lambda: sw.scm_sweep_argmax_blocks_plain(matrix, *fits_cv, k,
                                                  sw.BLOCK_K),
         4 * w * k + 100 * (8 * w + 12) + 8 * nb * 100, 2 * 100 * w * k, 5,
         "W=%d K=%d F=100 block=%d" % (w, k, sw.BLOCK_K))
     # The exact CV: 100 CV fits + 20 full-train fits, superblocks of 8192.
-    fits = fit_inputs(rng, 120, bm.n_rows, P_GRID, device)
+    fits_ex = fit_inputs(rng, 120, bm.n_rows, P_GRID, device)
     nsb = -(-k // 8192)
     row("scm_sweep_sbmax",
-        lambda: sw.scm_sweep_sbmax(matrix, *fits, k, 8192),
-        lambda: sw.scm_sweep_sbmax_plain(matrix, *fits, k, 8192),
+        lambda: sw.scm_sweep_sbmax(matrix, *fits_ex, k, 8192),
+        lambda: sw.scm_sweep_sbmax_plain(matrix, *fits_ex, k, 8192),
         4 * w * k + 120 * (8 * w + 12) + 4 * nsb * 120, 2 * 120 * w * k, 5,
         "W=%d K=%d F=120 sb=8192" % (w, k))
+    # The same shapes under a k-mer blacklist, which bans both rules of a
+    # k-mer: 0.1%, 1% and 20% of the columns at random (a few genes, a
+    # plasmid, a stress case); then 1% of the presence rules banned alone,
+    # which sends nearly every tile down the kernel's one-tile path.
+    # Columns banned in both rows need no counting.
+    mask_rng = np.random.RandomState(11)
+    for share, rows_banned in ((0.001, 2), (0.01, 2), (0.2, 2), (0.01, 1)):
+        banned = mask_rng.rand(k) < share
+        excl = torch.from_numpy(np.stack(
+            [banned, banned & (rows_banned == 2)]).astype(np.uint8)).to(device)
+        live = k - int(banned.sum()) if rows_banned == 2 else k
+        tag = "excl %g%%%s" % (100 * share,
+                               "" if rows_banned == 2 else " presence")
+        row("scm_sweep_argmax",
+            lambda: sw.scm_sweep_argmax_blocks(matrix, *fits_cv, k,
+                                               sw.BLOCK_K, excl),
+            lambda: sw.scm_sweep_argmax_blocks_plain(matrix, *fits_cv, k,
+                                                     sw.BLOCK_K, excl),
+            4 * w * k + 2 * k + 100 * (8 * w + 12) + 8 * nb * 100,
+            2 * 100 * w * live, 5, "W=%d K=%d F=100 block=%d %s"
+            % (w, k, sw.BLOCK_K, tag), key="scm_sweep_argmax:" + tag)
+        row("scm_sweep_sbmax",
+            lambda: sw.scm_sweep_sbmax(matrix, *fits_ex, k, 8192, excl),
+            lambda: sw.scm_sweep_sbmax_plain(matrix, *fits_ex, k, 8192, excl),
+            4 * w * k + 2 * k + 120 * (8 * w + 12) + 4 * nsb * 120,
+            2 * 120 * w * live, 5, "W=%d K=%d F=120 sb=8192 %s" % (w, k, tag),
+            key="scm_sweep_sbmax:" + tag)
     # The argmax CART engine's largest frontier: per-node priors (a forest
     # of fold and master trees), no exclusion mask. Two classes, as on the
     # main path, are scored by look-up; three classes by the direct scores
@@ -994,9 +1078,10 @@ def run(seed):
             raise AssertionError("path %r launched no %s" % (path, missing))
     if not frontiers:
         raise AssertionError("the argmax CART engine launched no frontier")
-    profile_learn("learn_SCM(engine='device')",
-                  lambda: scm_path("device")[1], walls["device"],
-                  fingerprints["device"])
+    for engine in ("device", "device-argmax"):
+        profile_learn("learn_SCM(engine=%r)" % engine,
+                      lambda: scm_path(engine)[1], walls[engine],
+                      fingerprints[engine])
     profile_learn("learn_CART(engine='device-argmax')",
                   lambda: runners["tree-device-argmax"]()[1],
                   walls["tree-device-argmax"],
@@ -1007,6 +1092,7 @@ def run(seed):
         "paths' shapes:")
     bm = GrmDataset(mem, device=device).bit_matrix()
     b1_per_s, sfu_per_s = probe_card(popc_per_s)
+    machine_code()
     rows = time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                         max(n for n, _ in frontiers))
     kernels = []
@@ -1028,7 +1114,13 @@ def run(seed):
                 [r["max_abs_err"]] + [x["max_abs_err"]
                                       for x in more.values()]), **more)
         else:
-            entry.update(rows[kname])
+            # The SCM sweeps: no mask under the common keys, each blacklist
+            # under its own; the error is the largest of the rows'.
+            more = {key.split(":", 1)[1]: r for key, r in rows.items()
+                    if key.startswith(kname + ":")}
+            entry.update(rows[kname], **more)
+            entry["max_abs_err"] = max([rows[kname]["max_abs_err"]] + [
+                r["max_abs_err"] for r in more.values()])
         kernels.append(entry)
     return name, smi, kernels
 

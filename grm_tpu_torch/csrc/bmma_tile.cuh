@@ -27,9 +27,11 @@
 //
 // How the sweeps use it: A's rows are 16 matrix columns (k-mers), the depth
 // is the genome axis, and B's columns are 8 example masks. With mask 2j the
-// first and mask 2j + 1 the second class of node j, a thread's d[0], d[1]
-// are both class counts of node t for matrix column g, and d[2], d[3] those
-// for matrix column g + 8: an epilogue per (node, column) needs no shuffle.
+// first and mask 2j + 1 the second class of node j (cart_sweep.cu), or the
+// negative and the positive examples of fit j (scm_sweep.cu), a thread's
+// d[0], d[1] are both counts of node or fit t for matrix column g, and d[2],
+// d[3] those for matrix column g + 8: an epilogue per (node, column) needs
+// no shuffle.
 
 #pragma once
 
@@ -57,6 +59,31 @@ __device__ __forceinline__ void mma_and_popc_k128(int (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d = c + popcount(A & B) over one 128-bit step: a tile's first step, with
+// the accumulators' start c apart from d (no copy of c into d first).
+__device__ __forceinline__ void mma_and_popc_k128_from(int (&d)[4],
+                                                       uint32_t a0,
+                                                       uint32_t a1,
+                                                       uint32_t b0,
+                                                       const int (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+        "r"(c[3]));
+}
+
+// d = c + popcount(A & B) over one 256-bit step, c apart from d.
+__device__ __forceinline__ void mma_and_popc_k256_from(
+    int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+    uint32_t b0, uint32_t b1, const int (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "r"(c[0]),
+        "r"(c[1]), "r"(c[2]), "r"(c[3]));
 }
 
 // d += popcount(A & B) over one 256-bit step (two k128 steps' operands).

@@ -31,16 +31,43 @@
 // rounds once, exactly as the plain PyTorch version's separate mul and sub
 // do. A fused multiply-add would round once where PyTorch rounds twice.
 //
-// What bounds it on the H100: integer operations. Each column costs W
-// 4-byte loads but 2 * F * W AND + POPC + ADD; at F = 100..128 fits the
-// popc work (16 per clock per SM) outweighs the matrix read by ~50x.
+// What bounds it on the H100. The counting is a 1-bit matrix product,
+// (cn, cp) = matrix AND-POPC masks, and runs on the tensor cores
+// (bmma_tile.cuh): at W = 11 words, two products (a k256 and a k128) per 16
+// columns and 4 fits, where the scalar pipe took 2 * 11 AND + POPC + ADD
+// per (fit, column). What is left is the epilogue per (fit, column): two
+// conversions, the utilities (one product and one difference for kArgmax,
+// two and four for kSuperblockMax), the zero-coverage tests and a min and a
+// max, 9 to 10 instructions on the ALU and FMA pipes. The kernel is bound
+// by issuing those and by waiting on the chains of products between them,
+// not by the one read of the matrix (PERF.md has the times).
 //
-// What the design does about it: one thread per column (coalesced loads of
-// matrix row w), the fit masks in shared memory laid out [w][fit] so a
-// 16-byte load brings one word of four fits' masks (8 LDS.128 per word and
-// fit group of 16, not 32 LDS.32), 16 fits' counts in registers per pass,
-// and the matrix words of a block re-read from L1/L2 once per fit group.
-// The tensor-core route (b1 mma with AND + POPC) is later work.
+// The design. One warp owns tiles of 16 matrix columns: they are the 16
+// rows of the tile product's A operand, read straight from matrix[w, k] as
+// fragments (lane g * 4 + t reads word 4 * step + t of columns g and g + 8).
+// The fit masks are the B operand, 8 to a tile: 4 fits x (neg, pos), packed
+// by the caller in fragment order (ops/tiles.py pack_mask_tiles); the block
+// keeps them in shared memory as one 16-byte word per lane and 4 steps, so
+// one load brings a group's B for a whole chunk of 512 genomes. After the
+// steps thread (g, t) holds cn and cp of fit t of the group for columns g
+// and g + 8 and takes them with no shuffle. The conversions are one
+// subtraction each: the accumulators start at the bits of the float 2^23,
+// so the product's integer sum leaves 2^23 + count there, and subtracting
+// 2^23 gives the count as a float, exactly (counts stay below 2^23), on the
+// full-rate pipe and not on the quarter-rate I2F. In the common case (no
+// padding, at most 512 genomes) a warp takes four tiles at once: they share
+// each group's B and constants, and their four chains of products run side
+// by side. With an exclusion mask a warp reads the mask's bytes of its four
+// tiles one run ahead, and they still take the common case unless a rule
+// is banned alone: a column banned in both rows is read as a copy of an
+// unbanned column of the run, which min and max then take twice, changing
+// nothing. A pass keeps the running extrema of 32 groups in registers;
+// more groups take more passes over the block's columns (re-read from
+// L1/L2), and groups past the shared-memory budget go to grid rows. Tiles
+// with padding or a rule banned alone are taken one at a time with every
+// column tested. A tile whose 16 columns are all past the limit or banned
+// in both rows is not loaded. Past 512 genomes the further A words are
+// loaded per group, 8 groups a pass.
 //
 // Plain C interface for ctypes; returns cudaGetLastError().
 
@@ -50,154 +77,400 @@
 
 #include <cuda_runtime.h>
 
+#include "bmma_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFitGroup = 16;
+constexpr int kGroupFits = 4;  // fits of one mask tile (8 masks = 4 pairs)
+constexpr int kWarpCols = bmma::kTileRows;  // matrix columns per warp tile
+constexpr int kHalf = bmma::kTileRows / 2;  // column g + kHalf: d[2], d[3]
+constexpr int kChunkSteps = 4;  // depth steps of one 16-byte B load
+constexpr int kMagic = 0x4B000000;  // the bits of 2^23 as a float
+constexpr float kMagicF = 8388608.0f;
+constexpr int kPassGroups = 32;  // groups a pass, up to 512 genomes
+constexpr int kDeepGroups = 8;   // groups a pass past 512 genomes
+constexpr int kWideTiles = 4;    // warp tiles of the common case side by side
+constexpr int kWideCols = kWideTiles * kWarpCols;
 
 enum Epilogue { kArgmax = 0, kSuperblockMax = 1 };
 
-// Shared memory: masks [w][2 * fits_pad] (neg fits, then pos fits), then
-// n_neg, n_pos (int) and p (float) per fit, then the reduction scratch.
-__host__ __device__ inline size_t smem_bytes(int n_words, int fits_pad) {
-  return (size_t)n_words * 2 * fits_pad * sizeof(uint32_t) +
-         (size_t)3 * fits_pad * sizeof(float) +
-         (size_t)2 * kWarps * kFitGroup * sizeof(float);
+// Blocks an SM: 128 registers a thread, for the running extrema (2 x 32
+// for kArgmax, 32 for kSuperblockMax) and the A fragments of four tiles.
+constexpr int kBlocksPerSM = 2;
+
+__host__ __device__ inline int depth_steps(int n_words) {
+  return (n_words + bmma::kStepWords - 1) / bmma::kStepWords;
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(kThreads) scm_sweep_kernel(
-    const uint32_t* __restrict__ matrix, int n_words, long long n_cols,
-    long long limit, const uint32_t* __restrict__ neg,
-    const uint32_t* __restrict__ pos, const int32_t* __restrict__ n_neg,
-    const int32_t* __restrict__ n_pos, const float* __restrict__ ps,
-    int n_fits, int fits_per_block, int fits_pad,
-    const uint8_t* __restrict__ excl, int block_cols, int n_blocks,
-    float* __restrict__ out_a, float* __restrict__ out_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* s_masks = reinterpret_cast<uint32_t*>(smem_raw);
-  int32_t* s_nn = reinterpret_cast<int32_t*>(s_masks + (size_t)n_words * 2 * fits_pad);
-  int32_t* s_np = s_nn + fits_pad;
-  float* s_p = reinterpret_cast<float*>(s_np + fits_pad);
-  float* s_red = s_p + fits_pad;
+__host__ __device__ inline int depth_chunks(int n_words) {
+  return (depth_steps(n_words) + kChunkSteps - 1) / kChunkSteps;
+}
 
-  const int f_lo = blockIdx.y * fits_per_block;
-  const int fc = min(fits_per_block, n_fits - f_lo);
-  for (int i = threadIdx.x; i < n_words * fits_pad; i += kThreads) {
-    const int w = i / fits_pad;
-    const int f = i % fits_pad;
-    const bool live = f < fc;
-    const size_t src = (size_t)(f_lo + f) * n_words + w;
-    s_masks[(size_t)w * 2 * fits_pad + f] = live ? neg[src] : 0u;
-    s_masks[(size_t)w * 2 * fits_pad + fits_pad + f] = live ? pos[src] : 0u;
+// Groups a pass keeps in registers: 32, or 8 past one chunk of steps.
+__host__ __device__ inline int pass_groups(int n_words) {
+  return depth_chunks(n_words) > 1 ? kDeepGroups : kPassGroups;
+}
+
+// Shared memory: the B fragments of the row's groups ([group][chunk][lane],
+// 16 bytes each), the fits' constants (p, n_neg + n_pos, n_neg, n_pos), then
+// the reduction scratch of 8 warps x a pass's groups x 4 fits, twice.
+__host__ __device__ inline size_t smem_bytes(int n_words, int groups_per_row) {
+  return (size_t)groups_per_row * depth_chunks(n_words) * bmma::kLanes *
+             sizeof(uint4) +
+         (size_t)groups_per_row * kGroupFits * sizeof(float4) +
+         (size_t)2 * kWarps * pass_groups(n_words) * kGroupFits *
+             sizeof(float);
+}
+
+// The exclusion mask's bytes of the run of kWideCols columns from c0 on,
+// as lane reads them: presence and absence of column c0 + lane, then of
+// c0 + 32 + lane; zeros without a mask or for a run that passes col_hi
+// (which takes the one-tile path). Loaded one run ahead of their use.
+__device__ __forceinline__ void load_excl(uint32_t (&ex)[4],
+                                          const uint8_t* __restrict__ excl,
+                                          long long n_cols, long long c0,
+                                          long long col_hi, int lane) {
+  const bool live = excl != nullptr && c0 + kWideCols <= col_hi;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    ex[i] = live ? __ldg(excl + (i & 1) * n_cols + c0 + (i >> 1) * 32 + lane)
+                 : 0u;
+}
+
+// Whether a run of kWideCols columns takes the common case, from its mask
+// bytes: only if no rule is banned alone and no tile is banned whole (it
+// is not loaded; the one-tile path skips it). A column banned in both rows
+// contributes nothing; there it is read as a copy of the run's first
+// unbanned column, whose utilities the block takes anyway, so min and max
+// are unchanged. sub: bit h set where lane's column g + 8h is such a copy;
+// sub_off: the copy's offset from column g.
+__device__ __forceinline__ bool wide_run(const uint32_t (&ex)[4], int g,
+                                         uint32_t& sub, int& sub_off) {
+  const bool p0 = ex[0] != 0, a0 = ex[1] != 0;
+  const bool p1 = ex[2] != 0, a1 = ex[3] != 0;
+  if (__any_sync(0xffffffffu, p0 != a0 || p1 != a1)) return false;
+  const uint32_t lo = __ballot_sync(0xffffffffu, p0);  // columns 0..31
+  const uint32_t hi = __ballot_sync(0xffffffffu, p1);  // columns 32..63
+  if ((lo | hi) == 0) return true;
+  if ((lo & 0xffffu) == 0xffffu || (lo >> 16) == 0xffffu ||
+      (hi & 0xffffu) == 0xffffu || (hi >> 16) == 0xffffu)
+    return false;
+  // Tiles 0 and 1 are not both banned whole, so a column of lo is free.
+  sub_off = __ffs(~lo) - 1 - g;
+  sub = 0;
+#pragma unroll
+  for (int h = 0; h < 2 * kWideTiles; ++h)
+    sub |= (((h < 4 ? lo : hi) >> (g + kHalf * (h & 3))) & 1u) << h;
+  return true;
+}
+
+// A count from an accumulator that started at kMagic, as a float, exactly.
+__device__ __forceinline__ float count_of(int acc) {
+  return __fsub_rn(__int_as_float(acc), kMagicF);
+}
+
+// One (fit, column): counts (acc_n, acc_p) as the product left them; fit =
+// (p, bits of n_neg + n_pos, n_neg, n_pos); ex_p / ex_a ban the presence /
+// absence rule (exclusion mask or padding).
+template <int EPI>
+__device__ __forceinline__ void take_column(float& best_a, float& best_b,
+                                            int acc_n, int acc_p,
+                                            const float4& fit, bool ex_p,
+                                            bool ex_a) {
+  const float cn = count_of(acc_n);
+  const float cp = count_of(acc_p);
+  const float p = fit.x;
+  if (EPI == kArgmax) {
+    const float u = __fsub_rn(cn, __fmul_rn(p, cp));
+    const int s = (int)((uint32_t)acc_n + (uint32_t)acc_p - 2u * kMagic);
+    if (!(s == __float_as_int(fit.y) || ex_p)) best_a = fminf(best_a, u);
+    if (!(s == 0 || ex_a)) best_b = fmaxf(best_b, u);
+  } else {
+    const float u_pres = __fsub_rn(__fsub_rn(fit.z, cn),
+                                   __fmul_rn(p, __fsub_rn(fit.w, cp)));
+    const float u_abs = __fsub_rn(cn, __fmul_rn(p, cp));
+    if (!ex_p) best_a = fmaxf(best_a, u_pres);
+    if (!ex_a) best_a = fmaxf(best_a, u_abs);
   }
-  for (int f = threadIdx.x; f < fits_pad; f += kThreads) {
-    const bool live = f < fc;
-    s_nn[f] = live ? n_neg[f_lo + f] : 0;
-    s_np[f] = live ? n_pos[f_lo + f] : 0;
-    s_p[f] = live ? ps[f_lo + f] : 0.0f;
+}
+
+// One warp tile of 16 columns from k0 - g on, for the gp groups of a pass
+// (at most GC), with every column tested: padding, the exclusion mask. The
+// tile is not loaded when all its columns are padding or banned in both
+// rows. DEEP: whether the depth passes one chunk of 4 steps (512 genomes).
+template <int EPI, int GC, bool DEEP>
+__device__ __forceinline__ void sweep_tile(
+    float (&best_a)[GC], float (&best_b)[GC],
+    const uint32_t* __restrict__ matrix, int n_words, long long n_cols,
+    int n_steps, int n_chunks, long long k0, long long col_hi,
+    const uint8_t* __restrict__ excl, const uint4* b_pass,
+    const float4* fit_pass, int gp, int t) {
+  const long long k1 = k0 + kHalf;
+  bool ex_p0 = k0 >= col_hi;
+  bool ex_a0 = ex_p0;
+  bool ex_p1 = k1 >= col_hi;
+  bool ex_a1 = ex_p1;
+  if (excl != nullptr) {
+    if (!ex_p0) {
+      ex_p0 = excl[k0] != 0;
+      ex_a0 = excl[n_cols + k0] != 0;
+    }
+    if (!ex_p1) {
+      ex_p1 = excl[k1] != 0;
+      ex_a1 = excl[n_cols + k1] != 0;
+    }
+  }
+  const bool v0 = !(ex_p0 && ex_a0);
+  const bool v1 = !(ex_p1 && ex_a1);
+  if (!__any_sync(0xffffffffu, v0 || v1)) return;
+
+  // The first chunk's A fragments (up to 512 genomes), kept for every group
+  // of the pass.
+  const size_t step_stride = (size_t)bmma::kStepWords * n_cols;
+  const uint32_t* src = matrix + (size_t)t * n_cols + k0;
+  uint32_t a0[kChunkSteps];
+  uint32_t a1[kChunkSteps];
+#pragma unroll
+  for (int i = 0; i < kChunkSteps; ++i) {
+    const bool deep = i * bmma::kStepWords + t < n_words;
+    a0[i] = v0 && deep ? __ldg(src + i * step_stride) : 0u;
+    a1[i] = v1 && deep ? __ldg(src + i * step_stride + kHalf) : 0u;
+  }
+  __syncwarp();
+
+  const int start[4] = {kMagic, kMagic, kMagic, kMagic};
+#pragma unroll
+  for (int j = 0; j < GC; ++j) {
+    if (j >= gp) break;
+    const uint4* b_grp = b_pass + (size_t)j * n_chunks * bmma::kLanes;
+    const uint4 b = b_grp[0];
+    int acc[4];
+    bmma::mma_and_popc_k128_from(acc, a0[0], a1[0], b.x, start);
+    if (n_steps > 1) bmma::mma_and_popc_k128(acc, a0[1], a1[1], b.y);
+    if (n_steps > 2) bmma::mma_and_popc_k128(acc, a0[2], a1[2], b.z);
+    if (n_steps > 3) bmma::mma_and_popc_k128(acc, a0[3], a1[3], b.w);
+    if (DEEP) {
+      // The further chunks' A words are loaded here, per group, not kept.
+#pragma unroll 1
+      for (int ch = 1; ch < n_chunks; ++ch) {
+        const uint4 bc = b_grp[(size_t)ch * bmma::kLanes];
+        const uint32_t bw[kChunkSteps] = {bc.x, bc.y, bc.z, bc.w};
+#pragma unroll
+        for (int e = 0; e < kChunkSteps; ++e) {
+          const int step = ch * kChunkSteps + e;
+          if (step < n_steps) {
+            const int w = step * bmma::kStepWords + t;
+            const uint32_t* row = matrix + (size_t)w * n_cols;
+            bmma::mma_and_popc_k128(
+                acc, v0 && w < n_words ? __ldg(row + k0) : 0u,
+                v1 && w < n_words ? __ldg(row + k1) : 0u, bw[e]);
+          }
+        }
+      }
+    }
+    const float4 fc = fit_pass[j * kGroupFits];
+    take_column<EPI>(best_a[j], best_b[j], acc[0], acc[1], fc, ex_p0, ex_a0);
+    take_column<EPI>(best_a[j], best_b[j], acc[2], acc[3], fc, ex_p1, ex_a1);
+  }
+}
+
+// kWideTiles warp tiles, 16 kWideTiles columns from k0 - g on, none of them
+// padding or banned in one row alone, at most 512 genomes (one chunk of
+// steps): the common case, with no column tested; columns banned in both
+// rows are read as copies (wide_run's sub, sub_off). The tiles share each
+// group's B and constants, and their chains of products run side by side.
+// STEPS (3 or 4) fixes the chain at two products, a k256 over steps 0 and 1
+// and a k128 (or k256) over the rest, so that no product waits on a step
+// that does not exist; fewer steps multiply zero A words.
+template <int EPI, int GC, int STEPS>
+__device__ __forceinline__ void sweep_wide(
+    float (&best_a)[GC], float (&best_b)[GC],
+    const uint32_t* __restrict__ matrix, int n_words, long long n_cols,
+    long long k0, const uint4* b_pass, const float4* fit_pass, int gp,
+    int t, uint32_t sub, int sub_off) {
+  const size_t step_stride = (size_t)bmma::kStepWords * n_cols;
+  const uint32_t* src = matrix + (size_t)t * n_cols + k0;
+  uint32_t a[kWideTiles][2][STEPS];  // [tile][column g, g + 8][step]
+  int off[2 * kWideTiles];  // of column g + 8h, or of its copy
+#pragma unroll
+  for (int h = 0; h < 2 * kWideTiles; ++h)
+    off[h] = (sub >> h) & 1u ? sub_off : h * kHalf;
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i) {
+    const bool deep = i * bmma::kStepWords + t < n_words;
+#pragma unroll
+    for (int h = 0; h < 2 * kWideTiles; ++h)
+      a[h / 2][h % 2][i] = deep ? __ldg(src + i * step_stride + off[h]) : 0u;
+  }
+  __syncwarp();
+
+  const int start[4] = {kMagic, kMagic, kMagic, kMagic};
+#pragma unroll
+  for (int j = 0; j < GC; ++j) {
+    if (j >= gp) break;
+    const uint4 b4 = b_pass[(size_t)j * bmma::kLanes];
+    const uint32_t b[kChunkSteps] = {b4.x, b4.y, b4.z, b4.w};
+    int acc[kWideTiles][4];
+    // Steps 0 and 1 as one k256 product, then step 2 (and 3) as k128 or
+    // k256: a chain of 2 products at 3 or 4 steps.
+#pragma unroll
+    for (int u = 0; u < kWideTiles; ++u)
+      bmma::mma_and_popc_k256_from(acc[u], a[u][0][0], a[u][1][0], a[u][0][1],
+                                   a[u][1][1], b[0], b[1], start);
+#pragma unroll
+    for (int u = 0; u < kWideTiles; ++u) {
+      if (STEPS == 4)
+        bmma::mma_and_popc_k256(acc[u], a[u][0][2], a[u][1][2], a[u][0][3],
+                                a[u][1][3], b[2], b[3]);
+      else
+        bmma::mma_and_popc_k128(acc[u], a[u][0][2], a[u][1][2], b[2]);
+    }
+    const float4 fc = fit_pass[j * kGroupFits];
+#pragma unroll
+    for (int u = 0; u < kWideTiles; ++u) {
+      take_column<EPI>(best_a[j], best_b[j], acc[u][0], acc[u][1], fc, false,
+                       false);
+      take_column<EPI>(best_a[j], best_b[j], acc[u][2], acc[u][3], fc, false,
+                       false);
+    }
+  }
+}
+
+// MASKED: whether the launch has an exclusion mask, so that the common case
+// without one keeps no mask bytes and no copies in registers.
+template <int EPI, bool DEEP, bool MASKED>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+scm_sweep_kernel(const uint32_t* __restrict__ matrix, int n_words,
+                 long long n_cols, long long limit,
+                 const uint32_t* __restrict__ tiles,
+                 const int32_t* __restrict__ n_neg,
+                 const int32_t* __restrict__ n_pos,
+                 const float* __restrict__ ps, int n_fits, int groups_per_row,
+                 const uint8_t* __restrict__ excl, int block_cols,
+                 int n_blocks, float* __restrict__ out_a,
+                 float* __restrict__ out_b) {
+  constexpr int GC = DEEP ? kDeepGroups : kPassGroups;  // groups a pass
+  constexpr int kSlots = GC * kGroupFits;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_steps = depth_steps(n_words);
+  const int n_chunks = depth_chunks(n_words);
+  const int grp_lo = blockIdx.y * groups_per_row;
+  const int ng = min(groups_per_row,
+                     (n_fits + kGroupFits - 1) / kGroupFits - grp_lo);
+  uint4* s_b = reinterpret_cast<uint4*>(smem_raw);
+  float4* s_fit = reinterpret_cast<float4*>(
+      s_b + (size_t)groups_per_row * n_chunks * bmma::kLanes);
+  float* s_red = reinterpret_cast<float*>(s_fit + groups_per_row * kGroupFits);
+
+  // tiles[grp][step][lane] -> word step % 4 of s_b[grp][step / 4][lane],
+  // zero on the steps that pad the last chunk.
+  uint32_t* s_bw = reinterpret_cast<uint32_t*>(s_b);
+  const int padded_steps = n_chunks * kChunkSteps;
+  for (int i = threadIdx.x; i < ng * padded_steps * bmma::kLanes;
+       i += kThreads) {
+    const int ln = i % bmma::kLanes;
+    const int step = (i / bmma::kLanes) % padded_steps;
+    const int grp = i / (bmma::kLanes * padded_steps);
+    s_bw[(((size_t)grp * n_chunks + step / kChunkSteps) * bmma::kLanes + ln) *
+             kChunkSteps +
+         step % kChunkSteps] =
+        step < n_steps
+            ? tiles[((size_t)(grp_lo + grp) * n_steps + step) * bmma::kLanes +
+                    ln]
+            : 0u;
+  }
+  for (int m = threadIdx.x; m < ng * kGroupFits; m += kThreads) {
+    const int fit = grp_lo * kGroupFits + m;
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (fit < n_fits) {
+      const int nn = n_neg[fit];
+      const int np = n_pos[fit];
+      c = make_float4(ps[fit], __int_as_float(nn + np), (float)nn, (float)np);
+    }
+    s_fit[m] = c;
   }
   __syncthreads();
 
   const long long col_lo = (long long)blockIdx.x * block_cols;
-  const long long col_hi = min(col_lo + (long long)block_cols, limit);
+  const long long col_hi =
+      min(col_lo + (long long)block_cols, min(limit, n_cols));
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = bmma::frag_index(lane);  // matrix columns g and g + 8
+  const int t = bmma::frag_word(lane);   // word of a step; fit of a group
 
-  for (int g = 0; g < fc; g += kFitGroup) {
-    float best_a[kFitGroup];
-    float best_b[kFitGroup];
+  for (int g0 = 0; g0 < ng; g0 += GC) {
+    const int gp = min(GC, ng - g0);  // groups of this pass
+    float best_a[GC];
+    float best_b[GC];
 #pragma unroll
-    for (int j = 0; j < kFitGroup; ++j) {
+    for (int j = 0; j < GC; ++j) {
       best_a[j] = EPI == kArgmax ? FLT_MAX : -INFINITY;
       best_b[j] = -FLT_MAX;
     }
-    for (long long k = col_lo + threadIdx.x; k < col_hi; k += kThreads) {
-      int cn[kFitGroup];
-      int cp[kFitGroup];
-#pragma unroll
-      for (int j = 0; j < kFitGroup; ++j) {
-        cn[j] = 0;
-        cp[j] = 0;
-      }
-      for (int w = 0; w < n_words; ++w) {
-        const uint32_t word = __ldg(matrix + (size_t)w * n_cols + k);
-        const uint4* row_neg =
-            reinterpret_cast<const uint4*>(s_masks + (size_t)w * 2 * fits_pad + g);
-        const uint4* row_pos = reinterpret_cast<const uint4*>(
-            s_masks + (size_t)w * 2 * fits_pad + fits_pad + g);
-#pragma unroll
-        for (int q = 0; q < kFitGroup / 4; ++q) {
-          const uint4 mn = row_neg[q];
-          const uint4 mp = row_pos[q];
-          cn[4 * q + 0] += __popc(word & mn.x);
-          cn[4 * q + 1] += __popc(word & mn.y);
-          cn[4 * q + 2] += __popc(word & mn.z);
-          cn[4 * q + 3] += __popc(word & mn.w);
-          cp[4 * q + 0] += __popc(word & mp.x);
-          cp[4 * q + 1] += __popc(word & mp.y);
-          cp[4 * q + 2] += __popc(word & mp.z);
-          cp[4 * q + 3] += __popc(word & mp.w);
-        }
-      }
-      bool ex_p = false;
-      bool ex_a = false;
-      if (excl != nullptr) {
-        ex_p = excl[k] != 0;
-        ex_a = excl[n_cols + k] != 0;
-      }
-#pragma unroll
-      for (int j = 0; j < kFitGroup; ++j) {
-        const float cnf = (float)cn[j];
-        const float cpf = (float)cp[j];
-        const float p = s_p[g + j];
-        if (EPI == kArgmax) {
-          const float u = __fsub_rn(cnf, __fmul_rn(p, cpf));
-          const int s = cn[j] + cp[j];
-          const float u_min = (s == s_nn[g + j] + s_np[g + j] || ex_p) ? FLT_MAX : u;
-          const float u_max = (s == 0 || ex_a) ? -FLT_MAX : u;
-          best_a[j] = fminf(best_a[j], u_min);
-          best_b[j] = fmaxf(best_b[j], u_max);
-        } else {
-          const float u_pres =
-              ex_p ? -INFINITY
-                   : __fsub_rn(__fsub_rn((float)s_nn[g + j], cnf),
-                               __fmul_rn(p, __fsub_rn((float)s_np[g + j], cpf)));
-          const float u_abs = ex_a ? -INFINITY : __fsub_rn(cnf, __fmul_rn(p, cpf));
-          best_a[j] = fmaxf(best_a[j], fmaxf(u_pres, u_abs));
-        }
+    const uint4* b_pass = s_b + (size_t)g0 * n_chunks * bmma::kLanes + lane;
+    const float4* fit_pass = s_fit + g0 * kGroupFits + t;
+    constexpr int kRunStride = kWarps * kWideCols;
+    uint32_t ex_next[4] = {0u, 0u, 0u, 0u};
+    if (MASKED)
+      load_excl(ex_next, excl, n_cols, col_lo + warp * kWideCols, col_hi,
+                lane);
+    for (long long c0 = col_lo + warp * kWideCols; c0 < col_hi;
+         c0 += kRunStride) {
+      const uint32_t ex[4] = {ex_next[0], ex_next[1], ex_next[2], ex_next[3]};
+      if (MASKED)
+        load_excl(ex_next, excl, n_cols, c0 + kRunStride, col_hi, lane);
+      uint32_t sub = 0;
+      int sub_off = 0;
+      if (!DEEP && c0 + kWideCols <= col_hi &&
+          (!MASKED || wide_run(ex, g, sub, sub_off))) {
+        if (n_steps <= 3)
+          sweep_wide<EPI, GC, 3>(best_a, best_b, matrix, n_words, n_cols,
+                                 c0 + g, b_pass, fit_pass, gp, t, sub,
+                                 sub_off);
+        else
+          sweep_wide<EPI, GC, 4>(best_a, best_b, matrix, n_words, n_cols,
+                                 c0 + g, b_pass, fit_pass, gp, t, sub,
+                                 sub_off);
+      } else {
+#pragma unroll 1
+        for (int u = 0; u < kWideTiles; ++u)
+          sweep_tile<EPI, GC, DEEP>(best_a, best_b, matrix, n_words, n_cols,
+                                    n_steps, n_chunks, c0 + u * kWarpCols + g,
+                                    col_hi, excl, b_pass, fit_pass, gp, t);
       }
     }
 
-    // Block reduction: min/max are exact, so the order does not matter.
+    // Lanes with the same t hold the same fits: reduce over g, then over
+    // the warps. min and max are exact, so the order does not matter.
 #pragma unroll
-    for (int j = 0; j < kFitGroup; ++j) {
+    for (int j = 0; j < GC; ++j) {
       float a = best_a[j];
       float b = best_b[j];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
+      for (int off = 16; off >= 4; off >>= 1) {
         const float oa = __shfl_xor_sync(0xffffffffu, a, off);
-        const float ob = EPI == kArgmax ? __shfl_xor_sync(0xffffffffu, b, off) : b;
         a = EPI == kArgmax ? fminf(a, oa) : fmaxf(a, oa);
-        if (EPI == kArgmax) b = fmaxf(b, ob);
+        if (EPI == kArgmax) b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, off));
       }
-      if (lane == 0) {
-        s_red[warp * kFitGroup + j] = a;
-        s_red[(kWarps + warp) * kFitGroup + j] = b;
+      if (g == 0) {
+        s_red[warp * kSlots + j * kGroupFits + t] = a;
+        s_red[(kWarps + warp) * kSlots + j * kGroupFits + t] = b;
       }
     }
     __syncthreads();
-    if (threadIdx.x < kFitGroup && g + (int)threadIdx.x < fc) {
-      const int j = threadIdx.x;
-      float a = s_red[j];
-      float b = s_red[kWarps * kFitGroup + j];
+    const int slot = threadIdx.x;
+    const int fit = (grp_lo + g0) * kGroupFits + slot;
+    if (slot < gp * kGroupFits && fit < n_fits) {
+      float a = s_red[slot];
+      float b = s_red[kWarps * kSlots + slot];
       for (int wp = 1; wp < kWarps; ++wp) {
-        const float oa = s_red[wp * kFitGroup + j];
+        const float oa = s_red[wp * kSlots + slot];
         a = EPI == kArgmax ? fminf(a, oa) : fmaxf(a, oa);
-        b = fmaxf(b, s_red[(kWarps + wp) * kFitGroup + j]);
+        b = fmaxf(b, s_red[(kWarps + wp) * kSlots + slot]);
       }
-      const int fit = f_lo + g + j;
       if (EPI == kArgmax) {
         out_a[(size_t)blockIdx.x * n_fits + fit] = a;
         out_b[(size_t)blockIdx.x * n_fits + fit] = b;
@@ -209,50 +482,70 @@ __global__ void __launch_bounds__(kThreads) scm_sweep_kernel(
   }
 }
 
+template <int EPI, bool DEEP, bool MASKED>
+int launch(const void* matrix, int n_words, long long n_cols, long long limit,
+           const void* tiles, const void* n_neg, const void* n_pos,
+           const void* ps, int n_fits, int groups_per_row, const void* excl,
+           int block_cols, void* out_a, void* out_b, void* stream) {
+  const size_t smem = smem_bytes(n_words, groups_per_row);
+  const int n_blocks = (int)((n_cols + block_cols - 1) / block_cols);
+  const int fits_per_row = groups_per_row * kGroupFits;
+  const dim3 grid(n_blocks, (n_fits + fits_per_row - 1) / fits_per_row);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        scm_sweep_kernel<EPI, DEEP, MASKED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  scm_sweep_kernel<EPI, DEEP, MASKED>
+      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)matrix, n_words, n_cols, limit, (const uint32_t*)tiles,
+      (const int32_t*)n_neg, (const int32_t*)n_pos, (const float*)ps, n_fits,
+      groups_per_row, (const uint8_t*)excl, block_cols, n_blocks,
+      (float*)out_a, (float*)out_b);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // epilogue 0 = kArgmax: out_a = block minima (n_blocks, n_fits), out_b =
 // block maxima (n_blocks, n_fits). epilogue 1 = kSuperblockMax: out_a =
-// (n_fits, n_blocks), out_b unused. n_blocks = ceil(n_cols / block_cols);
-// grid row y takes fits [y * fits_per_block, (y + 1) * fits_per_block);
-// excl is (2, n_cols) bytes (row 0 presence, row 1 absence) or null.
+// (n_fits, n_blocks), out_b unused. n_blocks = ceil(n_cols / block_cols).
+// tiles (groups, steps, 32) words: the neg and pos masks in the fragment
+// order of bmma_tile.cuh, groups = ceil(n_fits / 4), steps = ceil(n_words /
+// 4); word [grp][s][4 * (2 * j + e) + t] is word 4 * s + t of fit 4 * grp +
+// j's neg (e = 0) or pos (e = 1) mask, 0 past the real fits and words.
+// n_neg, n_pos (n_fits,) int32; ps (n_fits,) float32; excl (2, n_cols)
+// bytes (row 0 presence, row 1 absence) or null. A pass keeps 32 groups in
+// registers, 8 past 16 words; grid row y takes groups [y * groups_per_row,
+// (y + 1) * groups_per_row). Counts must stay below 2^23 (n_words < 2^18),
+// and n_blocks > 0, n_fits > 0 are the caller's to check.
 extern "C" int grm_scm_sweep(int epilogue, const void* matrix, int n_words,
                              long long n_cols, long long limit,
-                             const void* neg, const void* pos,
-                             const void* n_neg, const void* n_pos,
-                             const void* ps, int n_fits, int fits_per_block,
-                             const void* excl, int block_cols, void* out_a,
-                             void* out_b, void* stream) {
-  const int fits_pad = (fits_per_block + kFitGroup - 1) / kFitGroup * kFitGroup;
-  const size_t smem = smem_bytes(n_words, fits_pad);
-  const int n_blocks = (int)((n_cols + block_cols - 1) / block_cols);
-  const dim3 grid(n_blocks, (n_fits + fits_per_block - 1) / fits_per_block);
-  cudaStream_t s = (cudaStream_t)stream;
-#define GRM_LAUNCH(EPI)                                                      \
-  do {                                                                       \
-    if (smem > 48 * 1024) {                                                  \
-      cudaError_t e = cudaFuncSetAttribute(                                  \
-          scm_sweep_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-          (int)smem);                                                        \
-      if (e != cudaSuccess) return (int)e;                                   \
-    }                                                                        \
-    scm_sweep_kernel<EPI><<<grid, kThreads, smem, s>>>(                      \
-        (const uint32_t*)matrix, n_words, n_cols, limit,                     \
-        (const uint32_t*)neg, (const uint32_t*)pos, (const int32_t*)n_neg,   \
-        (const int32_t*)n_pos, (const float*)ps, n_fits, fits_per_block,     \
-        fits_pad, (const uint8_t*)excl, block_cols, n_blocks,                \
-        (float*)out_a, (float*)out_b);                                       \
-  } while (0)
-  if (epilogue == kArgmax) {
-    GRM_LAUNCH(kArgmax);
-  } else {
-    GRM_LAUNCH(kSuperblockMax);
-  }
-#undef GRM_LAUNCH
-  return (int)cudaGetLastError();
+                             const void* tiles, const void* n_neg,
+                             const void* n_pos, const void* ps, int n_fits,
+                             int groups_per_row, const void* excl,
+                             int block_cols, void* out_a, void* out_b,
+                             void* stream) {
+#define GRM_ARGS                                                             \
+  matrix, n_words, n_cols, limit, tiles, n_neg, n_pos, ps, n_fits,           \
+      groups_per_row, excl, block_cols, out_a, out_b, stream
+  if (epilogue != kArgmax && epilogue != kSuperblockMax)
+    return (int)cudaErrorInvalidValue;
+  // Past 512 genomes every tile takes the one-tile path, which reads the
+  // mask itself.
+  if (depth_chunks(n_words) > 1)
+    return epilogue == kArgmax ? launch<kArgmax, true, false>(GRM_ARGS)
+                               : launch<kSuperblockMax, true, false>(GRM_ARGS);
+  if (excl != nullptr)
+    return epilogue == kArgmax ? launch<kArgmax, false, true>(GRM_ARGS)
+                               : launch<kSuperblockMax, false, true>(GRM_ARGS);
+  return epilogue == kArgmax ? launch<kArgmax, false, false>(GRM_ARGS)
+                             : launch<kSuperblockMax, false, false>(GRM_ARGS);
+#undef GRM_ARGS
 }
 
-extern "C" long long grm_scm_sweep_smem_bytes(int n_words, int fits_per_block) {
-  const int fits_pad = (fits_per_block + kFitGroup - 1) / kFitGroup * kFitGroup;
-  return (long long)smem_bytes(n_words, fits_pad);
+extern "C" long long grm_scm_sweep_smem_bytes(int n_words,
+                                              int groups_per_row) {
+  return (long long)smem_bytes(n_words, groups_per_row);
 }

@@ -12,9 +12,9 @@ the Pallas kernel it takes the column-exclusion mask (the k-mer blacklist)
 itself, so the argmax engine has one scorer with and without a blacklist.
 
 The kernel reads the class masks as the product's B operand, in the order
-its fragments want them: :func:`pack_mask_tiles` lays them out as tiles of
-4 nodes x 1 class pair x 128 bits of depth, with zeros for the nodes,
-classes and words that pad a tile. For two classes the kernel does not
+its fragments want them: :func:`pack_mask_tiles` (``ops/tiles.py``, shared
+with ``scm_sweep``) lays them out as tiles of 4 nodes x 1 class pair x 128
+bits of depth, with zeros for the nodes, classes and words that pad a tile. For two classes the kernel does not
 compute a score per (node, column): a node with (n0, n1) examples has only
 (n0 + 1)(n1 + 1) distinct splits, so the kernel first fills a score table
 per node with the same device function and then looks each score up
@@ -43,6 +43,9 @@ import torch
 
 from . import _build
 from .popcount import _check_matrix, _stream, popcount_colsum_plain
+# The tile layout is shared with scm_sweep; its names stay importable here.
+from .tiles import (TILE_LANES, TILE_NODES, TILE_WORDS,  # noqa: F401
+                    pack_mask_tiles, tile_plan)
 
 __all__ = [
     "BLOCK_K",
@@ -74,30 +77,6 @@ _SIGNATURES = {
 _SMEM_BUDGET = 64 << 10  # three blocks per SM; nodes past it go to grid rows
 _SMEM_MAX = 227 << 10
 _TABLE_BUDGET = 64 << 20  # bytes of score tables a launch may allocate
-TILE_NODES = 4  # nodes of one mask tile: 8 masks, a class pair per node
-TILE_WORDS = 4  # 32-bit words of depth per tensor-core step (128 bits)
-TILE_LANES = 32
-
-
-def tile_plan(n, c, w):
-    """(groups, pairs, steps) of the mask tiles of n nodes x c classes x w
-    words: nodes in groups of 4, classes in pairs, words in steps of 4."""
-    return -(-n // TILE_NODES), -(-c // 2), -(-w // TILE_WORDS)
-
-
-def pack_mask_tiles(class_masks):
-    """The (N, C, W) class masks in the kernel's fragment order: (groups,
-    pairs, steps, 32) int32 with word ``[g, q, s, 4 * (2 * j + e) + t]`` =
-    word ``4 * s + t`` of the mask of node ``4 * g + j``, class ``2 * q +
-    e``, and 0 where that node, class or word does not exist."""
-    n, c, w = class_masks.shape
-    groups, pairs, steps = tile_plan(n, c, w)
-    padded = torch.nn.functional.pad(
-        class_masks, (0, steps * TILE_WORDS - w, 0, 2 * pairs - c,
-                      0, groups * TILE_NODES - n))
-    return (padded.view(groups, TILE_NODES, pairs, 2, steps, TILE_WORDS)
-            .permute(0, 2, 4, 1, 3, 5)
-            .reshape(groups, pairs, steps, TILE_LANES).contiguous())
 
 
 def _smem_bytes(w, groups, c):

@@ -2,8 +2,9 @@
 to small per-block results inside one kernel.
 
 Port of ``grm_tpu/ops/pallas_scm_sweep.py`` (and of the core of the exact
-engine's XLA ``_pass1``). One CUDA kernel, ``csrc/scm_sweep.cu``, with two
-epilogues:
+engine's XLA ``_pass1``). One CUDA kernel, ``csrc/scm_sweep.cu``, counts
+``(cn, cp) = matrix AND-POPC masks`` as a 1-bit matrix product on the
+tensor cores (``csrc/bmma_tile.cuh``), with two epilogues:
 
 - :func:`scm_sweep_argmax_blocks` (phase 1 of the argmax engine): per block
   of columns and fit, the min of ``u_min`` and the max of ``u_max`` over
@@ -12,6 +13,12 @@ epilogues:
   columns past ``limit`` masked to +-float32 max;
 - :func:`scm_sweep_sbmax` (pass 1 of the exact engine): per fit and
   superblock, ``max(u_pres, u_abs)``, -inf on padding and excluded rules.
+
+The kernel reads the fits' masks as the product's B operand, 4 fits x (neg,
+pos) to a tile, packed in fragment order by ``ops/tiles.py``'s
+``pack_mask_tiles``; :func:`sweep_plan` says how many groups of 4 fits a
+pass keeps in registers (32, or 8 past 512 genomes) and a grid row in
+shared memory.
 
 :func:`scm_utility_argmax` adds phase 2 (``pallas_scm_sweep.py:290-336``)
 in torch: the first-occurrence argmin/argmax over blocks, then the winner
@@ -34,6 +41,7 @@ import torch
 
 from . import _build
 from .popcount import _check_matrix, _stream, popcount_colsum_pairs, popcount_colsum_plain
+from .tiles import TILE_LANES, TILE_NODES, pack_mask_tiles, tile_plan
 
 __all__ = [
     "BLOCK_K",
@@ -42,6 +50,7 @@ __all__ = [
     "scm_sweep_sbmax",
     "scm_sweep_sbmax_plain",
     "scm_utility_argmax",
+    "sweep_plan",
 ]
 
 BLOCK_K = 4096
@@ -49,12 +58,53 @@ _F32_MAX = float(np.finfo(np.float32).max)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "grm_scm_sweep": (
-        [_I, _P, _I, _L, _L, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
+        [_I, _P, _I, _L, _L, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P],
         _I),
     "grm_scm_sweep_smem_bytes": ([_I, _I], _L),
 }
-_SMEM_BUDGET = 96 << 10  # two blocks per SM; fits past it go to grid rows
+_SMEM_BUDGET = 64 << 10  # groups of fits past it go to grid rows
+_SMEM_MAX = 227 << 10
+_CHUNK_STEPS = 4  # tensor-core steps of one 16-byte load of B
+_PASS_GROUPS = 32  # groups of 4 fits a pass keeps in registers
+_DEEP_GROUPS = 8  # the same past one chunk of steps (512 genomes)
 _EPI_ARGMAX, _EPI_SBMAX = 0, 1
+
+
+def _pass_groups(w):
+    """Groups of 4 fits a pass keeps in registers: 32, or 8 past one chunk
+    of steps (the kernel's deep build)."""
+    deep = tile_plan(1, 2, w)[2] > _CHUNK_STEPS
+    return _DEEP_GROUPS if deep else _PASS_GROUPS
+
+
+def _smem_bytes(w, groups_per_row):
+    """Shared memory of one block of ``csrc/scm_sweep.cu``: the B fragments
+    of its groups (16 bytes a lane and 4 steps), 16 bytes of constants a
+    fit, and the reduction scratch of 8 warps x the pass's fit slots."""
+    chunks = -(-tile_plan(1, 2, w)[2] // _CHUNK_STEPS)
+    return (16 * TILE_LANES * groups_per_row * chunks
+            + 16 * TILE_NODES * groups_per_row
+            + 2 * 4 * 8 * TILE_NODES * _pass_groups(w))
+
+
+def sweep_plan(f, w):
+    """How f fits over w words go to the kernel: (groups of 4 fits a pass
+    keeps in registers, groups per grid row, shared-memory bytes of a
+    block). A row's groups fit the shared-memory budget and take as many
+    passes as they need. The shared-memory limit keeps w under ~7,000
+    words, so every count stays far below the 2^23 that the kernel's float
+    conversion needs."""
+    groups = tile_plan(f, 2, w)[0]
+    gpr = groups
+    while gpr > 1 and _smem_bytes(w, gpr) > _SMEM_BUDGET:
+        gpr = -(-gpr // 2)
+    smem = _smem_bytes(w, gpr)
+    if smem > _SMEM_MAX:
+        raise ValueError("%d words of fit masks do not fit one block's "
+                         "shared memory" % w)
+    if -(-groups // gpr) > 65535:
+        raise ValueError("too many fits for one launch")
+    return _pass_groups(w), gpr, smem
 
 
 def _check_fits(matrix, neg, pos, n_neg, n_pos, ps, excl):
@@ -78,18 +128,22 @@ def _check_fits(matrix, neg, pos, n_neg, n_pos, ps, excl):
 
 def _launch(epi, matrix, neg, pos, n_neg, n_pos, ps, limit, block, excl,
             out_a, out_b):
-    lib = _build.library("scm_sweep", _SIGNATURES)
     w, k = matrix.shape
     f = neg.shape[0]
-    fpb = f
-    while fpb > 16 and lib.grm_scm_sweep_smem_bytes(w, fpb) > _SMEM_BUDGET:
-        fpb = max(16, (fpb // 2 + 15) // 16 * 16)
-    args = [t.contiguous() for t in (neg, pos, n_neg, n_pos, ps)]
-    excl_ptr = None if excl is None else excl.contiguous().data_ptr()
+    _, gpr, smem = sweep_plan(f, w)
+    lib = _build.library("scm_sweep", _SIGNATURES)
+    if lib.grm_scm_sweep_smem_bytes(w, gpr) != smem:
+        raise RuntimeError("scm_sweep: the kernel's shared-memory layout is "
+                           "not the wrapper's")
+    tiles = pack_mask_tiles(torch.stack([neg, pos], 1))
+    # Held in locals until after the launch, so that no copy is freed early.
+    args = [tiles] + [t.contiguous() for t in (n_neg, n_pos, ps)]
+    excl_c = None if excl is None else excl.contiguous()
     with torch.cuda.device(matrix.device):
         _build.check(lib.grm_scm_sweep(
-            epi, matrix.data_ptr(), w, k, int(limit),
-            *[t.data_ptr() for t in args], f, fpb, excl_ptr, int(block),
+            epi, matrix.data_ptr(), w, k, min(int(limit), k),
+            *[t.data_ptr() for t in args], f, gpr,
+            None if excl_c is None else excl_c.data_ptr(), int(block),
             out_a.data_ptr(), None if out_b is None else out_b.data_ptr(),
             _stream(matrix)), "scm_sweep")
 

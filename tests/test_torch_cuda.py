@@ -146,6 +146,70 @@ def test_kernels_at_the_largest_genome_count(cuda):
           sw.scm_sweep_sbmax_plain(matrix, *fits, k, 8192, excl))
 
 
+# Fit counts, depths and widths that leave the tensor-core kernel's tiles
+# ragged: fits in groups of 4 and passes of 32 groups (256 fits: two
+# passes; at W = 157 passes of 8 groups and grid rows), depth in 128-bit steps and chunks of
+# 4 steps (W = 1, 12, 13, 157), 16 columns a warp (K = 5001 is a multiple
+# of neither 16 nor the block), limit < K, a column that every example has
+# and one that none has, and an exclusion mask that bans whole 16-column
+# tiles in both rows.
+RAGGED_SCM_CASES = [(f, n_genomes, dyadic)
+                    for f in (1, 3, 5, 101, 256)
+                    for n_genomes in (20, 384, 400, 5022)
+                    for dyadic in (False, True)]
+
+
+@pytest.mark.parametrize("f,n_genomes,dyadic", RAGGED_SCM_CASES)
+def test_scm_sweep_kernels_ragged_tiles(cuda, f, n_genomes, dyadic):
+    rng = np.random.RandomState(f + n_genomes + dyadic)
+    w = -(-n_genomes // 32)
+    k = 5001
+    matrix = _words(rng, (w, k))
+    matrix[:, 7] = -1
+    matrix[:, 8] = 0
+    fits = [t.to(cuda) for t in _fits(rng, f, w, n_genomes, dyadic)]
+    matrix = matrix.to(cuda)
+    excl = (rng.rand(2, k) < 0.3).astype(np.uint8)
+    excl[:, 32:48] = 1
+    excl[:, 4096 + 64:4096 + 96] = 1
+    limit = k - 7
+    for ex in (None, torch.from_numpy(excl).to(cuda)):
+        got = sw.scm_sweep_argmax_blocks(matrix, *fits, limit, 4096, ex)
+        want = sw.scm_sweep_argmax_blocks_plain(matrix, *fits, limit, 4096,
+                                                ex)
+        _same(got[0], want[0])
+        _same(got[1], want[1])
+        _same(sw.scm_sweep_sbmax(matrix, *fits, limit, 2048, ex),
+              sw.scm_sweep_sbmax_plain(matrix, *fits, limit, 2048, ex))
+
+
+@pytest.mark.parametrize("share", [0.004, 0.2])
+@pytest.mark.parametrize("f,n_genomes", [(5, 342), (100, 342), (101, 400)])
+def test_scm_sweep_kernels_under_a_kmer_blacklist(cuda, f, n_genomes, share):
+    """A k-mer blacklist bans both rules of a k-mer: runs of 64 columns take
+    the common case, banned columns read as copies, unless a rule is banned
+    alone (some are here) or a 16-column tile is banned whole, which take
+    the one-tile path."""
+    rng = np.random.RandomState(f + n_genomes + int(share * 1000))
+    w = -(-n_genomes // 32)
+    k = 20001
+    matrix = _words(rng, (w, k)).to(cuda)
+    fits = [t.to(cuda) for t in _fits(rng, f, w, n_genomes, False)]
+    excl = np.zeros((2, k), np.uint8)
+    excl[:, rng.rand(k) < share] = 1
+    excl[0, rng.rand(k) < 0.002] = 1
+    excl[1, rng.rand(k) < 0.002] = 1
+    excl[:, 4096 + 16:4096 + 32] = 1
+    ex = torch.from_numpy(excl).to(cuda)
+    limit = k - 3
+    got = sw.scm_sweep_argmax_blocks(matrix, *fits, limit, 4096, ex)
+    want = sw.scm_sweep_argmax_blocks_plain(matrix, *fits, limit, 4096, ex)
+    _same(got[0], want[0])
+    _same(got[1], want[1])
+    _same(sw.scm_sweep_sbmax(matrix, *fits, limit, 8192, ex),
+          sw.scm_sweep_sbmax_plain(matrix, *fits, limit, 8192, ex))
+
+
 def _frontier(rng, n, c, n_genomes, per_node):
     """n nodes over c classes: disjoint class masks of random examples;
     node 0's second class is empty."""
