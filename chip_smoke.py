@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of grm_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, checks the device engines
-against the host engines at reduced size, then drives ``learn scm`` and
-``learn tree`` at the published median scale, each through two engines.
+against the host engines at reduced size, then drives ``learn scm`` at the
+published median scale through two engines and ``learn tree`` through
+three.
 
     python3 chip_smoke.py [--seed N]
 
@@ -28,27 +29,42 @@ Phases (any failure exits non-zero and prints no result):
    scores equal. Cross-entropy: columns equal, scores equal or at most 2
    ulps apart (the kernel's logf and torch.log come from two toolkits); the
    largest distance is printed.
+   The exact CART engine's kernels, exact equality of every integer and
+   table: cart_exact_tuples and both modes of cart_exact_select (gather and
+   equiv) at N = 1, 18 and 65 nodes, C = 2 and 3 classes, W = 11 and 157,
+   K = 1,000,003 and 3001 (ragged) with the limit inside them, with and
+   without an exclusion mask, Gini and cross-entropy, every node with its
+   own train mask (nodes of different trees), thresholds from pass 1 with
+   the engine's margin, and an all-hit node (one example of each of two
+   classes, threshold +inf: nearly every column on one of four keys).
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
-   importances, metrics, classifications), and ``learn_CART(engine=
-   "device-argmax")`` the host engine's tree and train and test metrics
-   (the argmax engine keeps no tie sets).
+   importances, metrics, classifications), ``learn_CART(engine="device")``
+   the host engine's whole fingerprint (hyperparameters with the pruning
+   alpha, CV score, tree, rules, tie sets, importances, metrics,
+   classifications), and ``learn_CART(engine="device-argmax")`` the host
+   engine's tree and train and test metrics (the argmax engine keeps no tie
+   sets). Then a three-class 600 x 50,000 artifact, whose large nodes take
+   the exact engine's gather regime (which must run):
+   ``learn_CART(engine="device")`` must give the host engine's whole
+   fingerprint there too.
 5. The main paths at full scale: 342 genomes x 9,600,000 k-mers (the
    published median, BASELINE.md), 5-fold split, built in memory from
    --seed with the benchmark's recipe (a planted 3-marker conjunction plus
-   decoys). Four paths, each driven with the launch counts set to 0 just
+   decoys). Five paths, each driven with the launch counts set to 0 just
    before it and read just after: ``learn_SCM(engine="device")`` over the
    2 model types x 10 p grid, max 10 rules, plus ``write_scm_outputs``
    (what ``learn scm`` runs by default); ``learn_SCM(engine=
-   "device-argmax")``; ``learn_CART(engine="device-argmax")`` with both
-   criteria, depth 10, plus ``write_cart_outputs``; and
-   ``learn_CART(engine="host")`` with Gini, depth 3. Each path must launch
-   the kernels it is built on (PATH_KERNELS) and learn a model with at
-   least one rule and finite importances. One more SCM run through each
-   device engine and one more argmax CART run under torch.profiler must
-   give the same fingerprints, and give the device time by kernel and the
-   device's busy share of the run.
+   "device-argmax")``; ``learn_CART(engine="device")`` (what ``learn
+   tree`` runs by default on the card) with both criteria, depth 10, plus
+   ``write_cart_outputs``; ``learn_CART(engine="device-argmax")``, the
+   same; and ``learn_CART(engine="host")`` with Gini, depth 3. Each path
+   must launch the kernels it is built on (PATH_KERNELS) and learn a model
+   with at least one rule and finite importances. One more run of each
+   device path under torch.profiler must give the same fingerprint, and
+   give the device time by kernel and the device's busy share of the
+   run.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
@@ -70,11 +86,18 @@ Phases (any failure exits non-zero and prints no result):
    (a banned k-mer bans its presence and its absence rule) of 0.1%, 1% and
    20% of the columns at random, and with 1% of the presence rules banned
    alone (the kernel's one-tile path), each equal to its plain version.
+   The exact CART kernels at the largest frontier ``learn_CART(engine=
+   "device")`` gave each (the tuple tables; the equivalence compaction,
+   and the gather compaction at the tables' frontier), on a synthetic
+   frontier of that size with the engine's thresholds, and at an all-hit
+   node (the hot-key case), each equal to its plain version, with bounds as
+   above (the distinct splits' divisions and logs, the b1 counting of N x
+   (C + 1) mask rows, the matrix read and the outputs).
 
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
-the sum of the four paths' counts and ``launches_by_path`` gives each
+the sum of the five paths' counts and ``launches_by_path`` gives each
 path's own. Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
@@ -95,6 +118,9 @@ P_GRID = [0.1, 0.178, 0.316, 0.562, 1.0, 1.778, 3.162, 5.623, 10.0,
           999999.0]
 MEDIAN_GENOMES, MEDIAN_KMERS = 342, 9_600_000  # BASELINE.md
 SMALL_KMERS = 200_000
+# Phase 4's three-class artifact: its root and first nodes have count
+# lattices past the tuple tables' 65,536, so the exact engine gathers.
+TRI_GENOMES, TRI_KMERS = 600, 50_000
 SMALL_DEPTH = 3  # phase 4: the depth of the planted 3-marker conjunction
 N_FOLDS = 5
 MAX_RULES = 10
@@ -112,15 +138,25 @@ KERNELS = {
                         "grm_tpu/ops/pallas_scm_sweep.py:105"),
     "cart_sweep": ("grm_tpu_torch/csrc/cart_sweep.cu",
                    "grm_tpu/ops/pallas_cart_sweep.py:194"),
+    # XLA programs on the TPU (no pallas_call): _distinct_chunk, with
+    # _tuple_scatter_chunk (:124) and _winner_chunk (:293); _gather2_chunk,
+    # with _gather_pass (:321) and _equiv_chunk (:469).
+    "cart_exact_tuples": ("grm_tpu_torch/csrc/cart_exact.cu",
+                          "grm_tpu/parallel/cart_exact.py:165"),
+    "cart_exact_select": ("grm_tpu_torch/csrc/cart_exact.cu",
+                          "grm_tpu/parallel/cart_exact.py:437"),
 }
 # The kernels each main path is built on. learn scm: the exact engine's
 # pass 1 and pass 2; the argmax engine's CV sweep, its winner-block recount,
-# and its full-train fit (parallel/mesh.py). learn tree: the argmax engine's
-# frontier sweep; the host engine's per-node class counts.
+# and its full-train fit (parallel/mesh.py). learn tree: the exact engine's
+# pass 1 (the frontier sweep), its tuple tables and its compaction of the
+# chosen master's equivalence sets; the argmax engine's frontier sweep; the
+# host engine's per-node class counts.
 PATH_KERNELS = {
     "device": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "device-argmax": ("scm_sweep_argmax", "popcount_colsum_pairs",
                       "popcount_colsum"),
+    "tree-device": ("cart_sweep", "cart_exact_tuples", "cart_exact_select"),
     "tree-device-argmax": ("cart_sweep",),
     "tree-host": ("popcount_colsum",),
 }
@@ -131,6 +167,8 @@ KERNEL_FUNCTIONS = {
     "scm_sweep_argmax": "scm_sweep_kernel<0,",
     "scm_sweep_sbmax": "scm_sweep_kernel<1,",
     "cart_sweep": ("cart_sweep_kernel", "cart_sweep_table_kernel"),
+    "cart_exact_tuples": "cart_exact_tuples_kernel",
+    "cart_exact_select": "cart_exact_select_kernel",
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -153,15 +191,17 @@ def _kmer_sequence_block(start, count, k):
     return out.view("S%d" % k)[:, 0]
 
 
-def synthetic_arrays(n_genomes, n_kmers, seed):
+def synthetic_arrays(n_genomes, n_kmers, seed, n_classes=2):
     """The benchmark artifact's recipe (bench.py:254-300), in memory: ~75%
     dense noise, a planted conjunction of three markers (marker i absent on
-    third i of the negatives, lightly flip-noised) and 20 noisier decoys."""
+    third i of the negatives, lightly flip-noised) and 20 noisier decoys.
+    With more than two classes, the genomes fall into equal classes and the
+    first decoys become one flip-noised marker per class."""
     from grm_tpu_torch.utils import pack_binary_bytes_to_ints
 
     rng = np.random.RandomState(seed)
-    labels = np.zeros(n_genomes, np.uint8)
-    labels[n_genomes // 2:] = 1  # sorted by label, like the reference
+    # sorted by label, like the reference
+    labels = (np.arange(n_genomes) * n_classes // n_genomes).astype(np.uint8)
     w64 = -(-n_genomes // 64)
     matrix = np.frombuffer(rng.bytes(w64 * n_kmers * 8),
                            dtype=np.uint64).reshape(w64, n_kmers).copy()
@@ -181,16 +221,22 @@ def synthetic_arrays(n_genomes, n_kmers, seed):
         matrix[:, marker_cols[i]] = pack_binary_bytes_to_ints(
             col[:, None], 64)[:, 0]
     for i, c in enumerate(marker_cols[3:]):
-        col = labels.copy()
+        col = (labels > 0).astype(np.uint8)
         flips = rng.choice(n_genomes, max(2, n_genomes * (30 + 2 * (i % 6))
                                           // 100), replace=False)
         col[flips] = 1 - col[flips]
         matrix[:, c] = pack_binary_bytes_to_ints(col[:, None], 64)[:, 0]
+    if n_classes > 2:
+        for cl, c in enumerate(marker_cols[3:3 + n_classes]):
+            col = (labels == cl).astype(np.uint8)
+            flips = rng.choice(n_genomes, n_genomes // 20, replace=False)
+            col[flips] = 1 - col[flips]
+            matrix[:, c] = pack_binary_bytes_to_ints(col[:, None], 64)[:, 0]
     arrays = {
         "genome_identifiers": np.array([("g%05d" % i).encode()
                                         for i in range(n_genomes)]),
         "phenotype": labels,
-        "phenotype_tags": np.array([b"0", b"1"]),
+        "phenotype_tags": np.array([b"%d" % c for c in range(n_classes)]),
         "kmer_sequences": _kmer_sequence_block(0, n_kmers, 31),
         "kmer_by_matrix_column": np.arange(n_kmers, dtype=np.uint32),
         "kmer_matrix": matrix,
@@ -202,10 +248,10 @@ def synthetic_arrays(n_genomes, n_kmers, seed):
     return arrays, attrs
 
 
-def build_artifact(n_genomes, n_kmers, seed, device):
+def build_artifact(n_genomes, n_kmers, seed, device, n_classes=2):
     from grm_tpu_torch.dataset import from_numpy_artifact, split_with_proportion
 
-    arrays, attrs = synthetic_arrays(n_genomes, n_kmers, seed)
+    arrays, attrs = synthetic_arrays(n_genomes, n_kmers, seed, n_classes)
     mem = from_numpy_artifact(arrays, attrs)
     split_with_proportion(mem, "sp", train_prop=0.67, random_seed=42,
                           n_folds=N_FOLDS, device=device)
@@ -251,10 +297,12 @@ def learn(mem, engine, device):
 def learn_tree(mem, engine, device, criterion, max_depth):
     from grm_tpu_torch.learning.experiments import learn_CART
 
+    n_classes = mem["phenotype_tags"].shape[0]
     return learn_CART(
         dataset_file=mem, split_name="sp", criterion=criterion,
         max_depth=[max_depth], min_samples_split=[2],
-        class_importance=[{0: 1.0, 1: 1.0}], bound_delta=0.05,
+        class_importance=[{c: 1.0 for c in range(n_classes)}],
+        bound_delta=0.05,
         bound_max_genome_size=mem["kmer_sequences"].shape[0],
         parameter_selection="cv", engine=engine, device=device)
 
@@ -265,10 +313,11 @@ def tree_fingerprint(out, selection=True):
     importances, the metrics and the classifications. Exact ties between
     rules go to the most frequent k-mer on the host and to the lowest column
     in the argmax engine, so tie sets, fold trees, and with them the CV
-    score and the pruning alpha, may differ by design."""
+    score and the pruning alpha, may differ by design (the exact engine
+    agrees with the host on all of it)."""
     best_hp, score, train_m, test_m, model, imps, equiv, cls = out
     norm = lambda m: None if m is None else {
-        k: [float(x) for x in v] for k, v in m.items()}
+        k: np.asarray(v, np.float64).tolist() for k, v in m.items()}
     key = lambda r: (_s(r.kmer_sequence), _s(r.type))
     fp = {
         "tree": str(model),
@@ -286,6 +335,30 @@ def tree_fingerprint(out, selection=True):
         fp["equiv"] = [sorted(key(e) for e in equiv[r])
                        for r in model.decision_tree.rules]
     return fp
+
+
+def check_exact_tree(mem, host_out, device, what):
+    """Phase 4: ``learn_CART(engine="device")`` with both criteria must give
+    the host engine's whole fingerprint (``host_out`` is the host run's
+    output). Returns the exact kernels (and select modes) it launched."""
+    from grm_tpu_torch.ops import _build
+
+    want = tree_fingerprint(host_out)
+    _build.reset_launches()
+    t0 = time.time()
+    got = tree_fingerprint(learn_tree(mem, "device", device,
+                                      list(CART_CRITERIA), SMALL_DEPTH))
+    wall = time.time() - t0
+    modes = {kname for kname, _, _ in _build.exact_frontiers}
+    if got != want:
+        raise AssertionError("learn_CART: device != host at %s:\n%s\n%s"
+                             % (what, got, want))
+    log("    learn_CART(engine='device', depth %d) at %s: whole fingerprint "
+        "== host (hp %s, cv score %.5f, %d rules, tie set sizes %s); %.1f s; "
+        "exact launches %s"
+        % (SMALL_DEPTH, what, got["hp"], got["score"], len(got["rules"]),
+           [len(e) for e in got["equiv"]], wall, sorted(modes)))
+    return modes
 
 
 # -- kernels against their plain versions -------------------------------------
@@ -347,6 +420,68 @@ def frontier_inputs(rng, n, c, n_genomes, per_node, device):
     to = lambda a: torch.from_numpy(a).to(device)
     return (to(masks.view(np.int32)), to(n_node.astype(np.int32)),
             to(priors), to(totals.astype(np.float32)))
+
+
+def exact_inputs(rng, n, c, n_genomes, small, device):
+    """A frontier of n nodes over c classes for the exact CART kernels,
+    every node with its own train mask (nodes of different trees): disjoint
+    class masks of random examples. With ``small`` every node's count
+    lattice fits the tuple tables, and (from two nodes on) the last node
+    holds one example of each of two classes, so that nearly every column
+    falls on one of four keys: the all-hit node, once its threshold is
+    +inf. Returns (masks, train masks, n_node, priors, totals)."""
+    import torch
+
+    from grm_tpu_torch.ops.cart_exact import S_MAX
+
+    w = -(-n_genomes // 32)
+    bits = np.uint32(1) << (31 - np.arange(n_genomes) % 32).astype(np.uint32)
+    per_class = int(S_MAX ** (1.0 / c)) - 1 if small else n_genomes
+    masks = np.zeros((n, c, w), np.uint32)
+    train = np.zeros((n, w), np.uint32)
+    for i in range(n):
+        for ci in range(c):
+            m = rng.randint(0, min(per_class, n_genomes // c) + 1)
+            rows = rng.choice(np.arange(ci, n_genomes, c), m, replace=False)
+            np.bitwise_or.at(masks[i, ci], rows // 32, bits[rows])
+        rows = np.where(rng.rand(n_genomes) < 0.7)[0]
+        np.bitwise_or.at(train[i], rows // 32, bits[rows])
+    if small and n > 1:
+        masks[-1] = 0
+        for ci in range(2):
+            masks[-1, ci, 0] = bits[ci]
+    n_node = np.unpackbits(masks.view(np.uint8), axis=2).sum(2)
+    priors = (rng.rand(n, c) + 0.1).astype(np.float32)
+    totals = rng.randint(n_genomes // 2, n_genomes, size=(n, c))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (to(masks.view(np.int32)), to(train.view(np.int32)),
+            to(n_node.astype(np.int32)), to(priors),
+            to(totals.astype(np.float32)))
+
+
+def exact_thresholds(matrix, masks, n_node, priors, totals, criterion, limit,
+                     excl):
+    """The exact engine's per-node thresholds: pass 1's float32 minima (the
+    frontier sweep) plus the engine's margin."""
+    from grm_tpu_torch.ops import cart_sweep as cs
+    from grm_tpu_torch.parallel.cart_exact import _thresh_from_gmin
+
+    _, gmin = cs.cart_frontier_scores(matrix, masks, n_node, priors, totals,
+                                      criterion, limit, excl=excl)
+    return _thresh_from_gmin(gmin, float(masks.shape[1])).contiguous()
+
+
+def winning_keys(rows, n):
+    """Per node, every second present key of the tuple tables' rows, and an
+    occurrence maximum: -1 (any) for odd nodes, the largest present
+    occurrence for even ones."""
+    import torch
+
+    node, key, occmax = (r.cpu().numpy() for r in rows[:3])
+    keys = [key[node == i][::2] for i in range(n)]
+    occ = [-1 if i % 2 else int(occmax[node == i].max(initial=-1))
+           for i in range(n)]
+    return keys, torch.tensor(occ, dtype=torch.int32)
 
 
 def max_ulps(got, want):
@@ -576,6 +711,70 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
             deep = _words(rng, (-(-genomes // 32), 3001), device)
             for n, c in ((18, 2), (9, 3)):
                 cart_case(deep, genomes, n, c, criterion, False, True)
+
+    from grm_tpu_torch.ops import cart_exact as ce
+
+    def as_long(out):
+        return tuple(t.long() for t in out if t is not None)
+
+    def exact_case(mat, genomes, n, c, criterion, excl_on):
+        """Both exact kernels against their plain versions: the tuple
+        tables and the equivalence compaction on a frontier of small nodes
+        (the last one all-hit), the gather compaction on it and on a
+        frontier of large nodes."""
+        kk = mat.shape[1]
+        limit = kk - 5
+        ex = None
+        if excl_on:
+            ex = torch.from_numpy((rng.rand(kk) < 0.2).astype(np.uint8)
+                                  ).to(device)
+        what = "W=%d K=%d N=%d C=%d %s excl=%s" % (mat.shape[0], kk, n, c,
+                                                   criterion, excl_on)
+        for small_nodes in (True, False):
+            masks, train, n_node, priors, totals = exact_inputs(
+                rng, n, c, genomes, small_nodes, device)
+            scale = (priors / totals).contiguous()
+            thresh = exact_thresholds(mat, masks, n_node, priors, totals,
+                                      criterion, limit, ex)
+            if small_nodes:
+                if n > 1:
+                    thresh[-1] = float("inf")
+                args = (mat, masks, train, n_node, scale, thresh, criterion,
+                        limit, ex)
+                want = ce.cart_exact_tuples_plain(*args)
+                record("cart_exact_tuples", as_long(ce.cart_exact_tuples(
+                    *args)), as_long(want), what)
+                if not bool((want[0] != 0).any()):
+                    raise AssertionError("cart_exact_tuples: no tuple "
+                                         "passed at %s" % what)
+                keys, occmax = winning_keys(ce.table_rows(*want), n)
+                args = (mat, masks, train, n_node, scale, "gini", limit,
+                        "equiv")
+                kw = dict(occmax=occmax.to(device), excl=ex,
+                          bitmap=torch.from_numpy(ce.key_bitmap(keys)
+                                                  ).to(device))
+                record("cart_exact_select",
+                       as_long(ce.cart_exact_select(*args, **kw)),
+                       as_long(ce.cart_exact_select_plain(*args, **kw)),
+                       "equiv " + what)
+            args = (mat, masks, train, n_node, scale, criterion, limit,
+                    "gather")
+            record("cart_exact_select",
+                   as_long(ce.cart_exact_select(*args, thresh=thresh,
+                                                excl=ex)),
+                   as_long(ce.cart_exact_select_plain(*args, thresh=thresh,
+                                                      excl=ex)),
+                   "gather " + what)
+
+    for kk in (k, 3001):
+        mat = matrix if kk == k else matrix[:, :kk].contiguous()
+        for n, c in ((1, 2), (18, 2), (65, 2), (18, 3)):
+            for criterion in CART_CRITERIA:
+                for excl_on in (False, True):
+                    exact_case(mat, n_genomes, n, c, criterion, excl_on)
+    for criterion in CART_CRITERIA:  # W = 157: nodes over grid rows
+        exact_case(m, wide, 65, 2, criterion, True)
+        exact_case(m, wide, 18, 3, criterion, False)
     return worst, ulps
 
 
@@ -700,13 +899,15 @@ def distinct_splits(n_node, k):
 
 
 def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
-                 frontier):
+                 frontier, exact_sizes):
     """Phase 6: each kernel at the main paths' shapes against its plain
     version on the same inputs, with its bounds; one JSON line each, with
     its launches on each main path. ``frontier`` is the number of nodes
-    cart_sweep is timed at, ``b1_per_s`` and ``sfu_per_s`` the measured
-    rates of the 1-bit tensor-core product and the special-function unit,
-    ``popc_per_s`` the scalar POPC pipe's rate by the 16-a-clock rule."""
+    cart_sweep is timed at, ``exact_sizes`` the (kernel, nodes, classes)
+    of the exact engine's launches on its path, ``b1_per_s`` and
+    ``sfu_per_s`` the measured rates of the 1-bit tensor-core product and
+    the special-function unit, ``popc_per_s`` the scalar POPC pipe's rate
+    by the 16-a-clock rule."""
     import torch
 
     from grm_tpu_torch.ops import cart_sweep as cs
@@ -847,7 +1048,120 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                 compare=lambda got, want: compare_cart_blocks(
                     got, want, criterion)[0],
                 key="cart_sweep:" + how + criterion)
+    time_exact_kernels(row, rng, matrix, device, exact_sizes)
     return rows
+
+
+def time_exact_kernels(row, rng, matrix, device, exact_sizes):
+    """Phase 6's rows of the exact CART kernels (Gini, the CLI's default
+    criterion), through ``row`` of :func:`time_kernels`: the tuple tables at
+    the largest frontier the exact engine gave them, and the equivalence
+    compaction at the largest it gave that (the winning keys: every present
+    key of the tables), on synthetic frontiers of those sizes with the
+    engine's thresholds; the gather compaction at the tables' frontier; and
+    both at an all-hit node (one example of each of two classes, every
+    valid split passing: nearly every column on one of four keys, the
+    hot-key case)."""
+    import torch
+
+    from grm_tpu_torch.ops import cart_exact as ce
+
+    w, k = matrix.shape
+    genomes = 32 * w
+    criterion, c = "gini", 2
+    largest = {}
+    for kname, n, _ in exact_sizes:
+        kname = kname.split(":")[0]
+        largest[kname] = max(largest.get(kname, 0), n)
+    nb = -(-k // ce.BLOCK_K)
+
+    def as_long(out):
+        return tuple(t.long() for t in out if t is not None)
+
+    def exact(name):
+        def compare(got, want):
+            err = max_abs_err(as_long(got), as_long(want))
+            if err != 0.0:
+                raise AssertionError("%s differs from its plain version at "
+                                     "the main path's shapes (%r)"
+                                     % (name, err))
+            return err
+        return compare
+
+    def frontier(n, all_hit):
+        if all_hit:  # one node: one example of each class, +inf threshold
+            masks, train, n_node, priors, totals = exact_inputs(
+                rng, 2, c, genomes, True, device)
+            masks, train, n_node, priors, totals = (
+                t[-1:].contiguous() for t in (masks, train, n_node, priors,
+                                              totals))
+            thresh = torch.full((1,), float("inf"), device=device)
+        else:
+            masks, train, n_node, priors, totals = exact_inputs(
+                rng, n, c, genomes, True, device)
+            masks[-1] = masks[0]  # no all-hit node here
+            n_node[-1] = n_node[0]
+            thresh = exact_thresholds(matrix, masks, n_node, priors, totals,
+                                      criterion, k, None)
+        return (masks, train, n_node, (priors / totals).contiguous(),
+                thresh)
+
+    def rate_args(n, n_node):
+        """(bytes every exact sweep moves, AND + POPC words, divisions of
+        the distinct splits)."""
+        return (4 * w * k + n * (c + 1) * 4 * w + 8 * n * c,
+                n * (c + 1) * w * k, 2 * distinct_splits(n_node, k))
+
+    for tag, n in (("", largest.get("cart_exact_tuples", 1)),
+                   ("all-hit", 1)):
+        masks, train, n_node, scale, thresh = frontier(n, bool(tag))
+        args = (matrix, masks, train, n_node, scale, thresh, criterion, k)
+        nbytes, words, special = rate_args(n, n_node)
+        tables = int(ce.lattice_sizes(n_node).sum())
+        present = int((ce.cart_exact_tuples_plain(*args)[0] != 0).sum())
+        row("cart_exact_tuples", lambda: ce.cart_exact_tuples(*args),
+            lambda: ce.cart_exact_tuples_plain(*args),
+            nbytes + 12 * tables, words, 5,
+            "W=%d K=%d N=%d C=%d %s%s; %d table entries, %d present"
+            % (w, k, n, c, criterion, " " + tag if tag else "", tables,
+               present), special=special, special_popc=2 * n * k,
+            compare=exact("cart_exact_tuples"),
+            key="cart_exact_tuples" + (":" + tag if tag else ""))
+        if not tag:
+            # The gather compaction at the same frontier.
+            gargs = (matrix, masks, train, n_node, scale, criterion, k,
+                     "gather")
+            hits = int(ce.cart_exact_select_plain(*gargs,
+                                                  thresh=thresh)[0][-1])
+            row("cart_exact_select",
+                lambda: ce.cart_exact_select(*gargs, thresh=thresh),
+                lambda: ce.cart_exact_select_plain(*gargs, thresh=thresh),
+                nbytes + 16 * nb * n + 4 * (c + 2) * hits, words, 5,
+                "gather W=%d K=%d N=%d C=%d %s; %d hits"
+                % (w, k, n, c, criterion, hits), special=special,
+                special_popc=2 * n * k, compare=exact("cart_exact_select"),
+                key="cart_exact_select:gather")
+    for tag, n in (("", largest.get("cart_exact_select", 1)),
+                   ("all-hit", 1)):
+        masks, train, n_node, scale, thresh = frontier(n, bool(tag))
+        node, key = ce.table_rows(*ce.cart_exact_tuples_plain(
+            matrix, masks, train, n_node, scale, thresh, criterion, k))[:2]
+        node, key = node.cpu().numpy(), key.cpu().numpy()
+        bitmap = torch.from_numpy(ce.key_bitmap(
+            [key[node == i] for i in range(n)])).to(device)
+        occmax = torch.full((n,), -1, dtype=torch.int32, device=device)
+        eargs = (matrix, masks, train, n_node, scale, "gini", k, "equiv")
+        kw = dict(occmax=occmax, bitmap=bitmap)
+        hits = int(ce.cart_exact_select_plain(*eargs, **kw)[0][-1])
+        nbytes, words, _ = rate_args(n, n_node)
+        row("cart_exact_select",
+            lambda: ce.cart_exact_select(*eargs, **kw),
+            lambda: ce.cart_exact_select_plain(*eargs, **kw),
+            nbytes + 16 * nb * n + 4 * ce.BITMAP_WORDS * n + 4 * hits, words,
+            5, "equiv W=%d K=%d N=%d C=%d%s; %d hits"
+            % (w, k, n, c, " " + tag if tag else "", hits),
+            compare=exact("cart_exact_select"),
+            key="cart_exact_select" + (":equiv " + tag if tag else ""))
 
 
 def profile_learn(what, run_once, wall, want):
@@ -964,10 +1278,10 @@ def run(seed):
         % (MEDIAN_GENOMES, SMALL_KMERS, fp_dev["hp"], len(fp_dev["rules"]),
            fp_dev["test"]["risk"][0], t_art, t_host, t_dev))
     t0 = time.time()
-    tree_host = tree_fingerprint(
-        learn_tree(small, "host", device, list(CART_CRITERIA), SMALL_DEPTH),
-        selection=False)
+    host_out = learn_tree(small, "host", device, list(CART_CRITERIA),
+                          SMALL_DEPTH)
     t_host = time.time() - t0
+    tree_host = tree_fingerprint(host_out, selection=False)
     t0 = time.time()
     tree_dev = tree_fingerprint(
         learn_tree(small, "device-argmax", device, list(CART_CRITERIA),
@@ -981,7 +1295,22 @@ def run(seed):
         "(%d rules, test risk %.4f); host %.1f s, device-argmax %.1f s"
         % (SMALL_DEPTH, len(tree_dev["rules"]),
            tree_dev["test"]["risk"][0], t_host, t_dev))
-    del small
+    check_exact_tree(small, host_out, device, "%dx%d" % (MEDIAN_GENOMES,
+                                                       SMALL_KMERS))
+    del small, host_out
+    tri = build_artifact(TRI_GENOMES, TRI_KMERS, seed, device, n_classes=3)
+    t0 = time.time()
+    host_out = learn_tree(tri, "host", device, list(CART_CRITERIA),
+                          SMALL_DEPTH)
+    t_host = time.time() - t0
+    log("    3 classes, %dx%d: host %.1f s" % (TRI_GENOMES, TRI_KMERS,
+                                               t_host))
+    modes = check_exact_tree(tri, host_out, device, "%dx%d, 3 classes"
+                             % (TRI_GENOMES, TRI_KMERS))
+    if "cart_exact_select:gather" not in modes:
+        raise AssertionError("the three-class artifact took no gather "
+                             "regime (%s)" % sorted(modes))
+    del tri, host_out
 
     # 5. the main paths at full scale
     t0 = time.time()
@@ -1024,6 +1353,8 @@ def run(seed):
     runners = {
         "device": lambda: scm_path("device"),
         "device-argmax": lambda: scm_path("device-argmax"),
+        "tree-device": lambda: tree_path(
+            "device", list(CART_CRITERIA), 10),
         "tree-device-argmax": lambda: tree_path(
             "device-argmax", list(CART_CRITERIA), 10),
         "tree-host": lambda: tree_path("host", ["gini"], 3),
@@ -1031,7 +1362,8 @@ def run(seed):
     paths = {}  # path -> launches, counted from 0 over that path alone
     fingerprints = {}
     walls = {}
-    frontiers = []
+    frontiers = []  # (nodes, criterion) of every cart_sweep launch
+    exact_sizes = []  # (kernel, nodes, classes) of tree-device's launches
     for path in PATH_KERNELS:
         _build.reset_launches()
         t0 = time.time()
@@ -1041,14 +1373,16 @@ def run(seed):
         if path == "device":  # learn scm's default path writes its reports
             written = write_reports(
                 write_scm_outputs, out, {"engine": path, "hp_choice": "cv"})
-        elif path == "tree-device-argmax":
+        elif path in ("tree-device", "tree-device-argmax"):
             written = write_reports(
                 write_cart_outputs, out,
-                {"engine": "device-argmax", "hp_choice": "cv",
+                {"engine": path[len("tree-"):], "hp_choice": "cv",
                  "criterion": list(CART_CRITERIA), "max_depth": [10]},
                 classification_type="binary")
         paths[path] = dict(_build.launches)
         sizes = list(_build.cart_frontiers)  # (nodes, criterion) per launch
+        if path == "tree-device":
+            exact_sizes = list(_build.exact_frontiers)
         fingerprints[path] = fp
         if not fp["rules"] or not np.isfinite(fp["score"]):
             raise AssertionError("path %r learned no model" % path)
@@ -1068,24 +1402,27 @@ def run(seed):
                    fp["train"]["risk"][0], fp["test"]["risk"][0],
                    paths[path]))
         if sizes:
-            frontiers = sizes
+            frontiers.extend(sizes)
             log("    frontier size per cart_sweep launch (%d launches): %s"
                 % (len(sizes), [n for n, _ in sizes]))
+        if path == "tree-device":
+            log("    frontier size per exact launch: %s"
+                % [(kname, n) for kname, n, _ in exact_sizes])
         if written:
             log("    reports: %s" % written)
         missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
         if missing:
             raise AssertionError("path %r launched no %s" % (path, missing))
     if not frontiers:
-        raise AssertionError("the argmax CART engine launched no frontier")
+        raise AssertionError("the CART engines launched no frontier")
     for engine in ("device", "device-argmax"):
         profile_learn("learn_SCM(engine=%r)" % engine,
                       lambda: scm_path(engine)[1], walls[engine],
                       fingerprints[engine])
-    profile_learn("learn_CART(engine='device-argmax')",
-                  lambda: runners["tree-device-argmax"]()[1],
-                  walls["tree-device-argmax"],
-                  fingerprints["tree-device-argmax"])
+    for path in ("tree-device", "tree-device-argmax"):
+        profile_learn("learn_CART(engine=%r)" % path[len("tree-"):],
+                      lambda: runners[path]()[1], walls[path],
+                      fingerprints[path])
 
     # 6. kernel times at the main paths' shapes
     log("[6] the card's measured rates, then kernel times at the main "
@@ -1094,14 +1431,22 @@ def run(seed):
     b1_per_s, sfu_per_s = probe_card(popc_per_s)
     machine_code()
     rows = time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
-                        max(n for n, _ in frontiers))
+                        max(n for n, _ in frontiers), exact_sizes)
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         by_path = {e: paths[e][kname] for e in paths}
         entry = {"name": kname, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path}
-        if kname == "cart_sweep":
+        if kname.startswith("cart_exact"):
+            # The main path's frontier under the common keys, the other
+            # rows (the all-hit node; the gather mode) beside them.
+            more = {key.split(":", 1)[1]: r for key, r in rows.items()
+                    if key.startswith(kname + ":")}
+            entry.update(rows[kname], **more)
+            entry["max_abs_err"] = max([rows[kname]["max_abs_err"]] + [
+                r["max_abs_err"] for r in more.values()])
+        elif kname == "cart_sweep":
             # Gini by look-up (the main path's classes and the CLI's default
             # criterion) under the common keys; the error is the largest of
             # the four rows'.

@@ -4,14 +4,12 @@ and ``grm learn tree`` (``grm_tpu/cli.py:480``) and a ``--device`` flag that
 defaults to ``cuda``.
 
     python -m grm_tpu_torch learn scm --dataset ds.h5 --split sp [--device cpu]
-    python -m grm_tpu_torch learn tree --dataset ds.h5 --split sp \
-        --engine device-argmax [--device cpu]
+    python -m grm_tpu_torch learn tree --dataset ds.h5 --split sp [--device cpu]
 
 ``learn tree`` keeps ``grm learn tree``'s engines and its default: the exact
-device engine on the card, ``host`` with ``--device cpu``. The exact CART
-engine is not ported yet, so on the card pass ``--engine device-argmax`` or
-``--engine host``; ``--engine device`` ends with an error and runs nothing
-else in its place.
+device engine (``--engine device``) on the card, ``host`` with ``--device
+cpu``; ``--engine device --device cpu`` runs the exact engine's plain
+PyTorch versions.
 
 The other commands of ``grm_tpu.cli`` are still to port (ROADMAP.md).
 """
@@ -210,11 +208,11 @@ def _cmd_learn_tree(argv):
                         choices=["host", "device", "device-argmax"],
                         default=None,
                         help="host = reference split selection on the host; "
-                             "device = exact device engine (not ported yet: "
-                             "ends with an error); device-argmax = frontier "
-                             "scoring on the device, lowest-column tie "
-                             "resolution. Default: device on cuda, host "
-                             "with --device cpu.")
+                             "device = exact device engine (bit-identical "
+                             "to host); device-argmax = frontier scoring on "
+                             "the device, lowest-column tie resolution. "
+                             "Default: device on cuda, host with --device "
+                             "cpu.")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; fails without CUDA) or cpu "
                              "(plain PyTorch versions of the kernels).")
@@ -231,13 +229,9 @@ def _cmd_learn_tree(argv):
     progress = _progress_printer(args.progress)
 
     from .dataset import GrmDataset
-    from .learning.cart import EXACT_ENGINE_MESSAGE
     from .learning.experiments import learn_CART
     from .reports import write_cart_outputs
 
-    if args.engine == "device":
-        print("Error: %s." % EXACT_ENGINE_MESSAGE)
-        sys.exit(1)
     pre = GrmDataset(args.dataset, device=args.device)
     try:
         split = pre.get_split(args.split)

@@ -27,7 +27,9 @@
 // __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn (and the library is built
 // with -fmad=false), in the plain PyTorch version's order, so each rounds
 // once exactly as PyTorch's separate operations do. logf is CUDA's
-// single-precision log (never __logf, never -use_fast_math).
+// single-precision log (never __logf, never -use_fast_math). The score
+// functions live in cart_score.cuh, shared with the exact engine's kernels
+// (cart_exact.cu), so that a column scores the same bits in every pass.
 //
 // What bounds it on the H100: the counting is a 1-bit matrix product, left =
 // masks AND-POPC matrix, and runs on the tensor cores (bmma_tile.cuh), where
@@ -80,6 +82,7 @@
 #include <cuda_runtime.h>
 
 #include "bmma_tile.cuh"
+#include "cart_score.cuh"
 
 namespace {
 
@@ -101,7 +104,9 @@ constexpr int kDirectBlocks = 4;
 static_assert(kDirectChunk >= 1 && kDirectChunk <= kMaxChunk, "direct chunk");
 static_assert(kTableChunk >= 1 && kTableChunk <= kMaxChunk, "table chunk");
 
-enum Criterion { kGini = 0, kCrossEntropy = 1 };
+using cart_score::kCrossEntropy;
+using cart_score::kGini;
+using cart_score::split_score;
 
 __host__ __device__ constexpr int class_pairs(int n_classes) {
   return (n_classes + 1) / 2;
@@ -127,28 +132,6 @@ __host__ __device__ inline size_t smem_bytes(int n_words, int groups,
              bmma::kLanes * sizeof(uint32_t) +
          (size_t)2 * groups * kGroupNodes * n_classes * sizeof(float) +
          (size_t)2 * kWarps * kMaxChunk * kGroupNodes * sizeof(float);
-}
-
-template <int C, int CRIT>
-__device__ __forceinline__ float child_score(const float (&p)[C]) {
-  float p_t = p[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) p_t = __fadd_rn(p_t, p[c]);
-  if (CRIT == kGini) {
-    float sq = __fmul_rn(p[0], p[0]);
-#pragma unroll
-    for (int c = 1; c < C; ++c) sq = __fadd_rn(sq, __fmul_rn(p[c], p[c]));
-    const float num = __fsub_rn(__fmul_rn(p_t, p_t), sq);
-    return p_t > 0.0f ? __fdiv_rn(num, p_t) : 0.0f;
-  }
-  float ent = 0.0f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float frac = p_t > 0.0f ? __fdiv_rn(p[c], p_t) : 0.0f;
-    const float term = frac > 0.0f ? __fmul_rn(frac, logf(frac)) : 0.0f;
-    ent = __fsub_rn(ent, term);
-  }
-  return __fmul_rn(ent, p_t);
 }
 
 // (least score, lowest column): exact, so the order of the steps of a
@@ -205,8 +188,7 @@ __global__ void __launch_bounds__(kThreads) cart_sweep_table_kernel(
                          __fmul_rn(s1, (float)(n1 - b))};
     out[i] = i == 0 || i == size - 1
                  ? INFINITY
-                 : __fadd_rn(child_score<2, CRIT>(pl),
-                             child_score<2, CRIT>(pr));
+                 : split_score<2, CRIT>(pl, pr);
   }
 }
 
@@ -403,8 +385,7 @@ cart_sweep_kernel(
             pr[c] = __fmul_rn(sc, (float)right);
           }
           if (left_n == 0 || right_n == 0) continue;
-          const float score =
-              __fadd_rn(child_score<C, CRIT>(pl), child_score<C, CRIT>(pr));
+          const float score = split_score<C, CRIT>(pl, pr);
           if (score < best_s[j]) {
             best_s[j] = score;
             best_c[j] = (int32_t)(h ? k1 : k0);

@@ -12,11 +12,12 @@ become ONE multi-mask masked-popcount pass per node split — all classes'
 left-child counts in a single sweep of the device-resident bit matrix. The
 impurity arithmetic stays host-side float64 for exact selection parity.
 
-Engines: ``"host"`` (float64 scan over fetched counts) and
-``"device-argmax"`` (impurity and argmin on the device,
-:mod:`grm_tpu_torch.parallel.cart_device`). ``"device"``, the exact device
-engine, is not ported yet and raises ``NotImplementedError``; so does a
-``mesh``.
+Engines: ``"host"`` (float64 scan over fetched counts), ``"device"`` (the
+exact device engine, :mod:`grm_tpu_torch.parallel.cart_exact`: the host's
+model bit for bit from device sweeps) and ``"device-argmax"`` (impurity and
+argmin on the device, :mod:`grm_tpu_torch.parallel.cart_device`). A
+``mesh`` raises ``NotImplementedError`` until the multi-device engines are
+ported.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from math import ceil
 
 import numpy as np
 
+from ..utils import unpack_binary_bytes_from_ints
 from .tree import ProbabilisticTreeNode
 
 __all__ = [
@@ -40,11 +42,6 @@ __all__ = [
 ]
 
 ENGINES = ("host", "device", "device-argmax")
-EXACT_ENGINE_MESSAGE = (
-    "CART engine 'device' (the exact device engine, parallel/cart_exact.py) "
-    "is not ported yet (ROADMAP.md, Queue 1: exact CART); use engine='host' "
-    "for the same model or engine='device-argmax' for the float32 argmax "
-    "scorer")
 MESH_MESSAGE = (
     "CART over a device mesh is not ported yet (ROADMAP.md, Queue 1: "
     "multi-device engines); pass mesh=None")
@@ -68,6 +65,16 @@ class FrontierRequest:
     criterion: str = "gini"
     excl: object = None          # optional (K,) bool column blacklist
     bit_matrix: object = None    # the packed presence matrix to score over
+    exact: bool = False          # exact engine: candidate gathers, host ties
+    train_idx: object = None     # the tree's training examples (tiebreaker)
+    need_equiv: bool = True      # gather full equivalent-rule tie sets
+                                 # (False for fold trees: no split_callback)
+    occ_tiebreak: bool = True    # reference max-occurrence tiebreaker; False
+                                 # = identity (first candidate wins)
+    defer_equiv: bool = False    # exact engine: return winning-tuple specs
+                                 # instead of compacting equivalence sets
+                                 # now (resolved once for the chosen master
+                                 # via cart_exact.resolve_equiv_specs)
 
 
 @dataclass
@@ -76,7 +83,7 @@ class DeferredEquiv:
     exact engine defers compaction: carries the winning tuple keys +
     occmax needed to resolve the real column set later (only the
     finally-selected master's sets are consumed —
-    experiment_cart.py:636-638). Neither ported engine produces one."""
+    experiment_cart.py:636-638)."""
 
     keys: object   # (T,) int64 winning tuple keys
     occmax: int    # max train occurrence (-1 = identity tiebreak)
@@ -150,8 +157,9 @@ def score_candidates_f64(criterion, altered_priors, n_total_class_examples,
     scan's. ``node_n_by_class``: {class: int node example count};
     ``left_int_by_class``: {class: int array of left-child counts}.
 
-    The exact device engine's tuple-space replay (still to port) scores
-    its candidates with this, so it orders them as the host scan does.
+    Shared by the in-tree candidate replay and the exact device engine's
+    tuple-space replay (:mod:`grm_tpu_torch.parallel.cart_exact`), so both
+    order candidates as the host scan does.
     """
     if criterion == "gini":
         left = {c: left_int_by_class[c].astype(np.float64)
@@ -205,6 +213,20 @@ def service_frontier_request(request):
     """Score one tree's frontier request (the non-batched drive path)."""
     if isinstance(request, ColumnFetchRequest):
         return request.rule_classifications.get_columns(request.cols)
+    if request.exact:
+        from ..parallel.cart_exact import cart_frontier_candidates
+
+        n = len(request.node_sets)
+        return [
+            ("exact", d) for d in cart_frontier_candidates(
+                request.bit_matrix, request.node_sets,
+                request.altered_priors, request.total_n_examples_by_class,
+                request.criterion, [request.train_idx] * n,
+                excl=request.excl, need_equiv=[request.need_equiv] * n,
+                occ_tiebreak=[request.occ_tiebreak] * n,
+                defer_equiv=[request.defer_equiv] * n,
+            )
+        ]
     from ..parallel.cart_device import cart_frontier_splits_device
 
     return cart_frontier_splits_device(
@@ -216,7 +238,7 @@ def service_frontier_request(request):
 
 class DecisionTreeClassifier:
     def __init__(self, criterion, max_depth, min_samples_split, class_importance,
-                 engine="host", mesh=None):
+                 engine="host", mesh=None, defer_equiv=False):
         supported_criteria = ["gini", "cross-entropy"]
         if criterion not in supported_criteria:
             raise ValueError(
@@ -233,19 +255,21 @@ class DecisionTreeClassifier:
         self.min_samples_split = int(min_samples_split)
         self.class_importance = class_importance
         # "host": float64 exact-parity impurity scan over fetched counts;
-        # "device": the EXACT device engine, bit-identical to "host"
-        #   (parallel/cart_exact.py in grm_tpu) — not ported yet. It must
-        #   not quietly run another engine: argmax resolves ties to the
-        #   lowest column in float32, so the model could differ;
+        # "device": the EXACT device engine — float32 score minima and tuple
+        #   tables or candidate gathers on the device, float64 equality ties
+        #   and the tiebreaker replayed on the host: bit-identical to "host"
+        #   (parallel/cart_exact.py);
         # "device-argmax": impurity + argmin fully on device (f32, lowest
         #   column ties), only the winner fetched — the speed path.
         if engine not in ENGINES:
             raise ValueError("engine must be one of %s" % (ENGINES,))
-        if engine == "device":
-            raise NotImplementedError(EXACT_ENGINE_MESSAGE)
         if mesh is not None:
             raise NotImplementedError(MESH_MESSAGE)
         self.engine = engine
+        # Defer equivalence-set compaction (exact engine only): split
+        # callbacks receive DeferredEquiv specs; the experiment resolves
+        # the chosen master's sets once at the end.
+        self.defer_equiv = bool(defer_equiv) and engine == "device"
         self.decision_tree = None
 
     def fit(self, rules, rule_classifications, example_idx, rule_blacklist=None,
@@ -275,8 +299,18 @@ class DecisionTreeClassifier:
         trees never yield."""
         if level_callback is None:
             level_callback = lambda x: None
+        # Equivalent-rule tie sets are only consumed through split_callback
+        # (experiment drivers attach it to master trees only); fold trees
+        # skip the exact engine's equivalence compaction entirely.
+        need_equiv = split_callback is not None
         if split_callback is None:
             split_callback = lambda x, y: None
+        # The exact device engine replays the tiebreak itself, so it must
+        # know which semantics apply: the reference's max-occurrence rule
+        # (accepts_occurrences) or the identity default (first candidate).
+        # Arbitrary custom tiebreakers cannot be replayed device-side.
+        occ_tiebreak = getattr(tiebreaker, "accepts_occurrences", False)
+        custom_tiebreaker = tiebreaker is not None and not occ_tiebreak
         if tiebreaker is None:
             tiebreaker = lambda x: x
         if rule_blacklist is None:
@@ -366,6 +400,15 @@ class DecisionTreeClassifier:
             score_rules = _cross_entropy_rule_score
         node_type = ProbabilisticTreeNode
 
+        def _score_candidates(node_example_idx, left_int):
+            """float64 scores of candidate columns (bit-identical to the
+            full host scan; see :func:`score_candidates_f64`)."""
+            return score_candidates_f64(
+                self.criterion, altered_priors, n_total_class_examples,
+                {c: len(node_example_idx[c]) for c in node_example_idx},
+                left_int,
+            )
+
         def _select_best_rule(node, device_result=None):
             """Selection half of the reference's _find_best_split
             (cart.py:219-250): the winning rule + its equivalence set,
@@ -374,7 +417,48 @@ class DecisionTreeClassifier:
             best_rules_idx)."""
             node_example_idx = node.class_examples_idx
 
-            if device_result is not None:
+            if (isinstance(device_result, tuple)
+                    and device_result[0] == "exact"):
+                # Exact device engine. Two payload forms:
+                # - {"winner", "equiv"}: the engine already replayed the
+                #   float64 selection (tuple-space replay) — bit-identical
+                #   by construction (it runs score_candidates_f64 + the
+                #   same tiebreaker semantics);
+                # - {"cols", "left", "occ"}: candidate gather — the set
+                #   provably contains every column whose float64 score can
+                #   reach the minimum; selection replays here.
+                payload = device_result[1]
+                if payload is None:
+                    return None, None
+                if "winner" in payload:
+                    selected_rule_idx = int(payload["winner"])
+                    spec = payload.get("equiv_spec")
+                    if spec is not None:
+                        return selected_rule_idx, DeferredEquiv(
+                            np.asarray(spec[0], np.int64), int(spec[1]))
+                    equiv = payload.get("equiv")
+                    best_rules_idx = (
+                        np.asarray(equiv, dtype=np.int64)
+                        if equiv is not None
+                        else np.array([selected_rule_idx])
+                    )
+                    return selected_rule_idx, best_rules_idx
+                vals = _score_candidates(node_example_idx, payload["left"])
+                vmin = np.min(vals)
+                if vmin == np.inf:
+                    return None, None
+                tie_sel = vals == vmin
+                candidate_rules_idx = payload["cols"][tie_sel]
+                if getattr(tiebreaker, "accepts_occurrences", False):
+                    # The engine shipped each candidate's train-set
+                    # occurrence count with the candidate — no re-fetch.
+                    best_rules_idx = tiebreaker(
+                        candidate_rules_idx,
+                        occurrences=payload["occ"][tie_sel])
+                else:
+                    best_rules_idx = tiebreaker(candidate_rules_idx)
+                return int(best_rules_idx[0]), best_rules_idx
+            elif device_result is not None:
                 best, score = device_result
                 if best is None:
                     return None, None
@@ -420,15 +504,27 @@ class DecisionTreeClassifier:
         # so a blacklist maps to exact column exclusion whenever its indices
         # are presence rules (< K) or a paired presence/absence set — see
         # device_excl_from_blacklist. Anything else has no column mask, and
-        # the argmax engine refuses it rather than score on the host.
+        # the device engines refuse it rather than score on the host.
         device_excl, blacklist_ok = device_excl_from_blacklist(
             rule_blacklist, rule_classifications.shape[1] // 2)
-        use_device = self.engine == "device-argmax"
+        use_device = self.engine in ("device", "device-argmax")
         if use_device and not blacklist_ok:
             raise ValueError(
-                "engine='device-argmax' takes a blacklist of presence rules "
-                "(or presence/absence pairs) only; this one holds absence "
-                "rules without their presence rule.")
+                "engine=%r takes a blacklist of presence rules (or "
+                "presence/absence pairs) only; this one holds absence rules "
+                "without their presence rule." % self.engine)
+        exact_engine = self.engine == "device"
+        if exact_engine and custom_tiebreaker:
+            raise ValueError(
+                "engine='device' replays the reference tiebreak semantics "
+                "(max occurrence, or the identity default) on the host; a "
+                "custom tiebreaker callable cannot be replayed exactly — "
+                "use engine='host' or mark the callable with "
+                "accepts_occurrences if it implements the reference rule."
+            )
+        tree_train_idx = np.hstack(
+            [example_idx[c] for c in classes]
+        ) if classes else np.array([], np.int64)
 
         # Level-synchronous BFS (node order identical to the reference's
         # FIFO deque): nodes of one depth are independent, so the device
@@ -456,20 +552,35 @@ class DecisionTreeClassifier:
                     criterion=self.criterion,
                     excl=device_excl,
                     bit_matrix=rule_classifications.bit_matrix,
+                    exact=exact_engine,
+                    train_idx=tree_train_idx,
+                    need_equiv=need_equiv,
+                    occ_tiebreak=occ_tiebreak,
+                    defer_equiv=self.defer_equiv,
                 )
             # Phase 1: select every node's winning rule (host, no fetch).
-            selections = [
-                _select_best_rule(
-                    node,
-                    None if device_results is None else device_results[node_i])
-                for node_i, node in enumerate(splittable)
-            ]
+            selections = []
+            bits_by_node = {}
+            for node_i, node in enumerate(splittable):
+                dr = None if device_results is None \
+                    else device_results[node_i]
+                selections.append(_select_best_rule(node, dr))
+                # Exact-engine payloads may carry the winner's PACKED
+                # column bits (the engine gathers them with its tables),
+                # sparing this node the phase-2 fetch.
+                if (isinstance(dr, tuple) and dr[0] == "exact"
+                        and isinstance(dr[1], dict)
+                        and dr[1].get("winner_bits") is not None
+                        and selections[-1][0] == dr[1].get("winner")):
+                    bits_by_node[node_i] = dr[1]["winner_bits"]
             # Phase 2: ONE batched column fetch for the whole frontier —
             # per-node fetches each pay a device round trip (or, on the
             # HDF5 path, a full gzip-chunk inflate per packed row).
             # Device-engine trees yield the fetch so the forest engine
-            # batches it across ALL trees of the round.
-            sel_cols = [s for s, _ in selections if s is not None]
+            # batches it across ALL trees of the round. Nodes whose
+            # payload shipped winner bits don't join the fetch.
+            sel_cols = [s for node_i, (s, _) in enumerate(selections)
+                        if s is not None and node_i not in bits_by_node]
             if not sel_cols:
                 col_block = None
             elif use_device:
@@ -479,14 +590,24 @@ class DecisionTreeClassifier:
                 col_block = rule_classifications.get_columns(
                     np.array(sel_cols))
             col_pos = 0
+            n_rows = rule_classifications.shape[0]
+            n_kmers_total = rule_classifications.shape[1] // 2
             # Phase 3: dispatch children.
             nodes_to_split = deque()
             for node_i, node in enumerate(splittable):
                 selected_rule_idx, equivalent_rule_idx = selections[node_i]
                 if selected_rule_idx is None:
                     continue
-                rule_preds = col_block[:, col_pos]
-                col_pos += 1
+                if node_i in bits_by_node:
+                    packed = np.asarray(bits_by_node[node_i],
+                                        np.uint32)[:, None]
+                    rule_preds = unpack_binary_bytes_from_ints(
+                        packed)[:n_rows, 0]
+                    if selected_rule_idx >= n_kmers_total:
+                        rule_preds = 1 - rule_preds
+                else:
+                    rule_preds = col_block[:, col_pos]
+                    col_pos += 1
                 left_idx, right_idx = _dispatch_examples(node, rule_preds)
 
                 node.rule = rules[selected_rule_idx]

@@ -12,10 +12,10 @@ output parity).
 The HP grid runs against the device-resident bit matrix (the reference
 forks a worker per combination, re-opening the dataset each time): one tree
 after the other with ``engine="host"``, all trees as one level-synchronous
-forest with ``engine="device-argmax"``. Grid order is deterministic
-``product(criterion, class_importance, max_depth, min_samples_split)``.
-``engine="device"`` (the exact device engine) and ``mesh`` are not ported
-yet and raise ``NotImplementedError``.
+forest with ``engine="device"`` and ``engine="device-argmax"``. Grid order
+is deterministic ``product(criterion, class_importance, max_depth,
+min_samples_split)``. A ``mesh`` raises ``NotImplementedError`` until the
+multi-device engines are ported.
 """
 
 from __future__ import annotations
@@ -33,10 +33,10 @@ from ...dataset.artifact import GrmDataset
 from ...utils import parse_kmer_blacklist
 from ..bounds import cart_bound
 from ..cart import (
-    EXACT_ENGINE_MESSAGE,
     MESH_MESSAGE,
     DecisionTreeClassifier,
     DeferredEquiv,
+    device_excl_from_blacklist,
     prune_tree,
 )
 from ..metrics import get_binary_metrics, get_multiclass_metrics
@@ -200,9 +200,13 @@ def _lazy_tiebreaker(rule_classifications, example_idx):
     set is small (a full 2K ``sum_rows`` fetch per tree would dominate)."""
     cache = {}
 
-    def tiebreaker(best_score_idx):
+    def tiebreaker(best_score_idx, occurrences=None):
         best_score_idx = np.asarray(best_score_idx)
-        if "occ" in cache:
+        if occurrences is not None:
+            # The exact device engine ships each candidate's train-set
+            # occurrence count with the candidate: no fetch at all.
+            occ = np.asarray(occurrences)
+        elif "occ" in cache:
             occ = cache["occ"][best_score_idx]
         elif len(best_score_idx) <= 1024:
             # Candidate-only occurrences: identical integers to
@@ -215,6 +219,7 @@ def _lazy_tiebreaker(rule_classifications, example_idx):
             occ = cache["occ"][best_score_idx]
         return best_score_idx[np.isclose(occ, occ.max())]
 
+    tiebreaker.accepts_occurrences = True
     return tiebreaker
 
 
@@ -234,6 +239,7 @@ def _bound_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
         min_samples_split=hps["min_samples_split"],
         class_importance=hps["class_importance"],
         engine=engine,
+        defer_equiv=True,
     )
     jobs = [(master, dict(
         rules=rules,
@@ -301,17 +307,18 @@ def _cv_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
     rules = LazyKmerRuleList(dataset)
     rule_classifications = KmerRuleClassifications(dataset)
 
-    def _make_predictor():
+    def _make_predictor(defer_equiv=False):
         return DecisionTreeClassifier(
             criterion=hps["criterion"],
             max_depth=hps["max_depth"],
             min_samples_split=hps["min_samples_split"],
             class_importance=hps["class_importance"],
             engine=engine,
+            defer_equiv=defer_equiv,
         )
 
     fold_predictors = [_make_predictor() for _ in split.folds]
-    master_predictor = _make_predictor()
+    master_predictor = _make_predictor(defer_equiv=True)
 
     jobs = []
     for i, fold in enumerate(split.folds):
@@ -518,22 +525,31 @@ def train_tree(dataset, split_name, criterion, class_importance, max_depth,
     return best_score, best_hps, best_master_tree
 
 
-def _resolve_deferred_equiv(tree):
-    """Only the exact device engine defers equivalence sets
-    (``DeferredEquiv``), and it is not ported yet: neither engine of this
-    package produces one, so there is nothing to resolve. One that turns up
-    all the same raises rather than reaching the reports unresolved."""
+def _resolve_deferred_equiv(dataset, split_name, tree, rule_blacklist):
+    """Replace DeferredEquiv specs on the chosen master's rules with the
+    real equivalence column sets (one batched device pass)."""
+    nodes = []
     stack = [tree]
     while stack:
         node = stack.pop()
         if node is None or node.rule is None:
             continue
         if isinstance(node.rule.equivalent_rules_idx, DeferredEquiv):
-            raise NotImplementedError(
-                "a deferred equivalence set needs the exact CART engine's "
-                "resolve_equiv_specs, which is not ported yet (ROADMAP.md, "
-                "Queue 1: exact CART)")
-        stack.extend((node.left_child, node.right_child))
+            nodes.append(node)
+        stack.extend((node.right_child, node.left_child))
+    if not nodes:
+        return
+    from ...parallel.cart_exact import resolve_equiv_specs
+
+    excl, _ = device_excl_from_blacklist(rule_blacklist, dataset.kmer_count)
+    train_idx = dataset.get_split(split_name).train_genome_idx
+    specs = [(nd.rule.equivalent_rules_idx.keys,
+              nd.rule.equivalent_rules_idx.occmax) for nd in nodes]
+    sets = resolve_equiv_specs(
+        dataset.bit_matrix(), [nd.class_examples_idx for nd in nodes],
+        [train_idx] * len(nodes), specs, excl=excl)
+    for nd, eq in zip(nodes, sets):
+        nd.rule.equivalent_rules_idx = eq
 
 
 def _find_rule_blacklist(dataset, kmer_blacklist_file, warning_callback):
@@ -582,18 +598,19 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
 
     - "host" — the reference's float64 impurity scan over class counts
       fetched from the device (one masked-popcount pass per node).
+    - "device" — the exact device engine
+      (:mod:`grm_tpu_torch.parallel.cart_exact`): float32 minima, tuple
+      tables and candidate gathers on the device, the float64 selection and
+      the tiebreak replayed on the host, every tree of the HP grid grown as
+      one forest: the host engine's model, tie sets, CV score and pruning
+      alpha bit for bit.
     - "device-argmax" — impurity and argmin on the device in float32
       (:mod:`grm_tpu_torch.ops.cart_sweep`), every tree of the HP grid
       grown as one forest; ties go to the lowest column and no tie sets
       are kept.
-    - "device" — the exact device engine: not ported yet, raises
-      ``NotImplementedError`` (it must not quietly run another engine: the
-      model could differ among tied rules).
     """
     if engine not in ("host", "device", "device-argmax"):
         raise ValueError("unknown engine %r" % (engine,))
-    if engine == "device":
-        raise NotImplementedError(EXACT_ENGINE_MESSAGE)
     if mesh is not None:
         raise NotImplementedError(MESH_MESSAGE)
     if warning_callback is None:
@@ -638,7 +655,7 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
         batched = (
             partial(_bound_search_batched, delta=bound_delta,
                     max_genome_size=bound_max_genome_size, engine=engine)
-            if engine == "device-argmax" else None
+            if engine in ("device", "device-argmax") else None
         )
         best_hp_score, best_hps, best_master_tree = train_tree(
             dataset, split_name, criterion, class_importance, max_depth,
@@ -658,7 +675,7 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
             "cross-validation",
             batched_search_func=(
                 partial(_cv_search_batched, engine=engine)
-                if engine == "device-argmax" else None
+                if engine in ("device", "device-argmax") else None
             ),
         )
     else:
@@ -719,7 +736,11 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
     best_model = CARTModel(class_tags=list(phenotype_tags))
     best_model.decision_tree = best_master_tree
 
-    _resolve_deferred_equiv(best_master_tree)
+    # Resolve the chosen master's DEFERRED equivalence sets in one batched
+    # pass (the HP search skipped per-level compaction for every master;
+    # only this tree's sets are consumed — experiment_cart.py:636-638).
+    _resolve_deferred_equiv(dataset, split_name, best_master_tree,
+                            rule_blacklist)
 
     model_rules = best_master_tree.rules
     model_equivalent_rules = {}

@@ -25,11 +25,12 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["library", "build_all", "check", "launches", "cart_frontiers",
-           "reset_launches", "sass_opcodes", "BUILD_LOG"]
+           "exact_frontiers", "reset_launches", "sass_opcodes", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels"
-SOURCES = ("popcount_colsum", "scm_sweep", "cart_sweep", "bmma_probe")
+SOURCES = ("popcount_colsum", "scm_sweep", "cart_sweep", "cart_exact",
+           "bmma_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,10 +42,14 @@ launches = {
     "scm_sweep_argmax": 0,
     "scm_sweep_sbmax": 0,
     "cart_sweep": 0,
+    "cart_exact_tuples": 0,
+    "cart_exact_select": 0,
 }
 # (nodes, criterion) of the latest cart_sweep launches, one entry beside
 # each count: the frontier sizes a path really gave the kernel.
 cart_frontiers = collections.deque(maxlen=4096)
+# (kernel, nodes, classes) of the latest exact CART launches, likewise.
+exact_frontiers = collections.deque(maxlen=4096)
 BUILD_LOG = {}  # source name -> nvcc/ptxas output of its last build
 _LIBS = {}
 
@@ -53,6 +58,7 @@ def reset_launches():
     for name in launches:
         launches[name] = 0
     cart_frontiers.clear()
+    exact_frontiers.clear()
 
 
 def _nvcc():

@@ -164,6 +164,20 @@ def _child(p, criterion):
     return ent * p_t
 
 
+def _split_scores(left, n_node, scale, criterion):
+    """float32 scores of the splits with (N, C, B) left-child counts, from
+    the nodes' (N, C) counts and scales, and whether neither child is empty:
+    the kernels' operations in their order (``csrc/cart_score.cuh``)."""
+    c = left.shape[1]
+    right = n_node[:, :, None] - left
+    sc = scale[:, :, None]
+    score = (_child([sc[:, i] * left[:, i].float() for i in range(c)],
+                    criterion)
+             + _child([sc[:, i] * right[:, i].float() for i in range(c)],
+                      criterion))
+    return score, (left.sum(1) > 0) & (right.sum(1) > 0)
+
+
 def cart_sweep_blocks_plain(matrix, class_masks, n_node, scale, criterion,
                             limit, block, excl=None):
     """Plain PyTorch version of :func:`cart_sweep_blocks` (any device)."""
@@ -181,14 +195,9 @@ def cart_sweep_blocks_plain(matrix, class_masks, n_node, scale, criterion,
         hi = min(k, lo + step)
         left = popcount_colsum_plain(matrix[:, lo:hi].contiguous(),
                                      flat_masks).view(n, c, hi - lo)
-        right = n_node[:, :, None] - left
-        sc = scale[:, :, None]
-        score = (_child([sc[:, i] * left[:, i].float() for i in range(c)],
-                        criterion)
-                 + _child([sc[:, i] * right[:, i].float() for i in range(c)],
-                          criterion))
-        bad = (left.sum(1) == 0) | (right.sum(1) == 0)
-        bad = bad | (torch.arange(lo, hi, device=dev) >= limit)[None, :]
+        score, nonempty = _split_scores(left, n_node, scale, criterion)
+        bad = ~nonempty | (torch.arange(lo, hi, device=dev)
+                           >= limit)[None, :]
         if excl is not None:
             bad = bad | excl[lo:hi].bool()[None, :]
         score = torch.where(bad, torch.inf, score)

@@ -25,18 +25,20 @@ import numpy as np
 
 from ..learning.cart import ColumnFetchRequest, service_frontier_request
 from .cart_device import cart_frontier_splits_device
+from .cart_exact import cart_frontier_candidates
 
 __all__ = ["grow_trees_batched"]
 
 
 def _group_key(request):
     """Requests that may share one device call: the criterion is fixed per
-    launch, the matrix must match, and the launch takes one exclusion mask
-    (identical blacklists still batch)."""
+    launch, the matrix must match, the launch takes one exclusion mask
+    (identical blacklists still batch), and one engine serves it."""
     excl_key = (
         None if request.excl is None else request.excl.tobytes()
     )
-    return (request.criterion, id(request.bit_matrix), excl_key)
+    return (request.criterion, id(request.bit_matrix), excl_key,
+            request.exact)
 
 
 def grow_trees_batched(jobs):
@@ -46,7 +48,7 @@ def grow_trees_batched(jobs):
     ``classifier.fit_stepwise(**fit_kwargs)`` drives each tree. Trees using
     the host engine (which never yield) simply complete during their first
     advance. Each round, the pending frontier requests of all live trees
-    are grouped by (criterion, matrix, blacklist) and every group is
+    are grouped by (criterion, matrix, blacklist, engine) and every group is
     scored in ONE device call with per-node priors; trees of different
     depths batch freely (level-synchrony matters within a tree, not across
     trees).
@@ -104,7 +106,9 @@ def grow_trees_batched(jobs):
 
         for members in groups.values():
             head = requests[members[0]]
-            node_sets, priors, totals, spans = [], [], [], []
+            node_sets, priors, totals, trains, equivs, occs = (
+                [], [], [], [], [], [])
+            defers, spans = [], []
             for t in members:
                 req = requests[t]
                 lo = len(node_sets)
@@ -113,17 +117,32 @@ def grow_trees_batched(jobs):
                 totals.extend(
                     [req.total_n_examples_by_class] * len(req.node_sets)
                 )
+                trains.extend([req.train_idx] * len(req.node_sets))
+                equivs.extend([req.need_equiv] * len(req.node_sets))
+                occs.extend([req.occ_tiebreak] * len(req.node_sets))
+                defers.extend([req.defer_equiv] * len(req.node_sets))
                 spans.append((t, lo, len(node_sets)))
             if len(members) == 1:
                 scored = service_frontier_request(head)
             else:
-                scored = _service_batched(head, node_sets, priors, totals)
+                scored = _service_batched(head, node_sets, priors, totals,
+                                          trains, equivs, occs, defers)
             for t, lo, hi in spans:
                 results[t] = scored[lo:hi]
 
 
-def _service_batched(head, node_sets, priors, totals):
-    """One device call over the concatenated frontier with per-node priors."""
+def _service_batched(head, node_sets, priors, totals, trains, equivs, occs,
+                     defers):
+    """One device call over the concatenated frontier with per-node priors
+    (and, for the exact engine, per-node train sets and options)."""
+    if head.exact:
+        return [
+            ("exact", d) for d in cart_frontier_candidates(
+                head.bit_matrix, node_sets, priors, totals, head.criterion,
+                trains, excl=head.excl, need_equiv=equivs,
+                occ_tiebreak=occs, defer_equiv=defers,
+            )
+        ]
     return cart_frontier_splits_device(
         head.bit_matrix, node_sets, priors, totals, head.criterion,
         excl=head.excl,

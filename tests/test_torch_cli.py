@@ -1,7 +1,7 @@
 """The port's CLI (``python -m grm_tpu_torch learn scm --device cpu``, exact
 device engine by default; ``learn tree --device cpu``, host engine by
-default there) against ``grm learn scm --engine host`` and ``grm learn
-tree``: every report file is equal, apart from the running time and the
+default there, and its exact and argmax device engines) against ``grm learn
+scm --engine host`` and ``grm learn tree``: every report file is equal, apart from the running time and the
 lines that say how each ran (``engine``, ``device`` and ``n_devices`` in the
 configuration)."""
 
@@ -111,11 +111,13 @@ def test_port_cli_reports_equal_jax_host(artifact, hp_choice):
 
 
 @pytest.mark.parametrize("hp_choice,engine", [("cv", None), ("bound", None),
-                                              ("cv", "device-argmax")])
+                                              ("cv", "device-argmax"),
+                                              ("bound", "device")])
 def test_port_cli_learn_tree_reports_equal_jax(artifact, hp_choice, engine):
     """``learn tree --device cpu`` (host engine by default there, as ``grm
-    learn tree`` on a CPU backend) and ``--engine device-argmax``, over a
-    grid of criteria, depths and class importances."""
+    learn tree`` on a CPU backend), ``--engine device-argmax`` and
+    ``--engine device``, over a grid of criteria, depths and class
+    importances."""
     common = ["learn", "tree", "--dataset", "ds.h5", "--split", "sp",
               "--criterion", "gini", "crossentropy", "--max-depth", "2", "4",
               "--class-importance", "0.5", "1.0", "--hp-choice", hp_choice]
@@ -132,9 +134,15 @@ def test_port_cli_learn_tree_reports_equal_jax(artifact, hp_choice, engine):
 
 
 def test_port_cli_learn_tree_exact_engine_ends_with_an_error(artifact):
-    out = _run("grm_tpu_torch",
-               ["learn", "tree", "--dataset", "ds.h5", "--split", "sp",
-                "--engine", "device", "--device", "cpu",
-                "--output-dir", "never"], artifact, expect=1)
-    assert "not ported yet" in out and "ROADMAP" in out
-    assert not (artifact / "never").exists()
+    """``learn tree --engine device`` once ended with an error here; the
+    exact engine now runs, and its reports equal ``grm learn tree --engine
+    device``'s, tie sets (the equivalent-rule files) included."""
+    common = ["learn", "tree", "--dataset", "ds.h5", "--split", "sp",
+              "--criterion", "gini", "crossentropy", "--max-depth", "2", "4",
+              "--class-importance", "0.5", "1.0", "--engine", "device"]
+    want_dir, got_dir = _both_clis(artifact, "tree_exact", common, [],
+                                   ["--device", "cpu"])
+    _assert_same_outputs(want_dir, got_dir,
+                         {"model.fasta", "model_rule_0_equiv.fasta"})
+    equiv = (got_dir / "model_rule_0_equiv.fasta").read_text()
+    assert equiv.count(">") >= 2  # the planted tie: columns 9 and 33

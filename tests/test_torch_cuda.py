@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from grm_tpu_torch.ops import cart_exact as ce
 from grm_tpu_torch.ops import cart_sweep as cs
 from grm_tpu_torch.ops import popcount as pc
 from grm_tpu_torch.ops import scm_sweep as sw
@@ -362,3 +363,108 @@ def test_cart_sweep_kernel_rejects_too_many_classes(cuda):
     with pytest.raises(ValueError, match="at least 2"):
         cs.cart_frontier_scores(matrix, masks, n_node, priors, totals,
                                 "gini", 1000)
+
+
+def _exact_frontier(rng, n, c, n_genomes, small=True):
+    """n nodes over c classes with their own train masks (nodes of
+    different trees): disjoint class masks of random examples. With
+    ``small`` every node's count lattice fits the tuple tables (S_MAX);
+    the last node then holds one example of each of two classes, so that
+    nearly every column falls on one of four keys (the all-hit node)."""
+    w = -(-n_genomes // 32)
+    bits = np.uint32(1) << (31 - np.arange(n_genomes) % 32).astype(np.uint32)
+    per_class = int(ce.S_MAX ** (1.0 / c)) - 1 if small else n_genomes
+    masks = np.zeros((n, c, w), np.uint32)
+    train = np.zeros((n, w), np.uint32)
+    for i in range(n):
+        for ci in range(c):
+            m = rng.randint(0, min(per_class, n_genomes // c) + 1)
+            rows = rng.choice(np.arange(ci, n_genomes, c), m, replace=False)
+            np.bitwise_or.at(masks[i, ci], rows // 32, bits[rows])
+        rows = np.where(rng.rand(n_genomes) < 0.7)[0]
+        np.bitwise_or.at(train[i], rows // 32, bits[rows])
+    if small and n > 1:
+        masks[-1] = 0
+        for ci in range(2):
+            masks[-1, ci, 0] = bits[ci]
+    n_node = np.unpackbits(masks.view(np.uint8), axis=2).sum(2).astype(np.int32)
+    priors = (rng.rand(n, c) + 0.1).astype(np.float32)
+    totals = rng.randint(n_genomes // 2, n_genomes, size=(n, c)).astype(
+        np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (t(masks.view(np.int32)), t(train.view(np.int32)), t(n_node),
+            t(priors), t(totals))
+
+
+def _exact_case(cuda, n, c, k, criterion, excl_on, seed, n_genomes=342):
+    """Both exact kernels against their plain versions on one frontier, at
+    pass 1's thresholds (the engine's own margin) and, for the last node,
+    +inf (every valid split passes)."""
+    from grm_tpu_torch.parallel.cart_exact import _thresh_from_gmin
+
+    rng = np.random.RandomState(seed)
+    w = -(-n_genomes // 32)
+    matrix = _words(rng, (w, k)).to(cuda)
+    for small in (True, False):
+        masks, train, n_node, priors, totals = [
+            x.to(cuda) for x in _exact_frontier(rng, n, c, n_genomes, small)]
+        scale = (priors / totals).contiguous()
+        excl = None
+        if excl_on:
+            excl = torch.from_numpy((rng.rand(k) < 0.3).astype(np.uint8)
+                                    ).to(cuda)
+        limit = k - 7
+        _, gmin = cs.cart_frontier_scores_plain(matrix, masks, n_node, priors,
+                                                totals, criterion, limit,
+                                                excl=excl)
+        thresh = _thresh_from_gmin(gmin, float(c)).contiguous()
+        if small:
+            thresh[-1] = float("inf")
+            args = (matrix, masks, train, n_node, scale, thresh, criterion,
+                    limit, excl)
+            got = ce.cart_exact_tuples(*args)
+            want = ce.cart_exact_tuples_plain(*args)
+            for g, x in zip(got, want):
+                _same(g, x)
+            assert int((want[0] != 0).sum()) > 0
+            rows = [r.cpu().numpy() for r in ce.table_rows(*want)]
+            keys = [rows[1][(rows[0] == i) & (np.arange(len(rows[0])) % 2
+                                              == 0)] for i in range(n)]
+            occmax = torch.tensor([-1 if i % 2 else int(rows[2][rows[0] == i]
+                                                        .max(initial=-1))
+                                   for i in range(n)], dtype=torch.int32,
+                                  device=cuda)
+            args = (matrix, masks, train, n_node, scale, "gini", limit,
+                    "equiv")
+            kw = dict(occmax=occmax, excl=excl, bitmap=torch.from_numpy(
+                ce.key_bitmap(keys)).to(cuda))
+            got = ce.cart_exact_select(*args, **kw)
+            want = ce.cart_exact_select_plain(*args, **kw)
+            for g, x in zip(got[:2], want[:2]):
+                _same(g, x)
+        args = (matrix, masks, train, n_node, scale, criterion, limit,
+                "gather")
+        got = ce.cart_exact_select(*args, thresh=thresh, excl=excl)
+        want = ce.cart_exact_select_plain(*args, thresh=thresh, excl=excl)
+        for g, x in zip(got, want):
+            _same(g, x)
+
+
+EXACT_CASES = [(n, c, k, criterion, excl_on)
+               for n, c in ((1, 2), (18, 2), (65, 2), (18, 3), (9, 5))
+               for k in (100003, 3001)
+               for criterion in cs.CRITERIA
+               for excl_on in (False, True)]
+
+
+@pytest.mark.parametrize("n,c,k,criterion,excl_on", EXACT_CASES)
+def test_cart_exact_kernels(cuda, n, c, k, criterion, excl_on):
+    _exact_case(cuda, n, c, k, criterion, excl_on, n + c + k)
+
+
+@pytest.mark.parametrize("criterion", cs.CRITERIA)
+def test_cart_exact_kernels_at_the_largest_genome_count(cuda, criterion):
+    """5022 genomes (W = 157): 40 steps of depth, the last one word deep;
+    the nodes' masks pass the shared-memory budget, so they split over grid
+    rows."""
+    _exact_case(cuda, 65, 2, 20001, criterion, True, 17, n_genomes=5022)

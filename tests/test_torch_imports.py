@@ -39,6 +39,8 @@ calls = [
     lambda: learn_CART("unused.h5", "sp", "gini", 3, 2, {0: 1.0, 1: 1.0}),
     lambda: learn_CART("unused.h5", "sp", "gini", 3, 2, {0: 1.0, 1: 1.0},
                        engine="device-argmax"),
+    lambda: learn_CART("unused.h5", "sp", "gini", 3, 2, {0: 1.0, 1: 1.0},
+                       engine="device"),
 ]
 for call in calls:
     try:
@@ -49,7 +51,8 @@ for call in calls:
         raise AssertionError("ran without CUDA")
 assert resolve_device("cpu").type == "cpu"
 for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
-               "parallel.cart_device", "parallel.cart_forest",
+               "ops.cart_exact", "parallel.cart_device",
+               "parallel.cart_exact", "parallel.cart_forest",
                "learning.experiments.cart_experiment"):
     assert "grm_tpu_torch." + module in names, module
 print("imported", len(names))

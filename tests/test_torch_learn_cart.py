@@ -2,10 +2,10 @@
 versions) against ``grm_tpu``'s, engine by engine, on tie-rich artifacts
 that ``grm_tpu.dataset.from_tsv`` and ``split_with_proportion`` build: the
 hyperparameters (with ``pruning_alpha``), score, tree, rules, tie sets,
-importances, metrics and classifications must be equal. The host engine is
-float64 op for op, so everything is compared exactly; the argmax engine
-compares the same fields (it keeps no tie sets on either side: each rule's
-set is the rule itself). Also the pieces with no device in them
+importances, metrics and classifications must be equal. The host and the
+exact device engine are float64 op for op, so everything is compared
+exactly; the argmax engine compares the same fields (it keeps no tie sets
+on either side: each rule's set is the rule itself). Also the pieces with no device in them
 (``prune_tree``, ``BetweenDict``, the impurities, the bound, the metrics)
 against their originals."""
 
@@ -35,7 +35,7 @@ from grm_tpu_torch.learning.rules import (
 
 from test_torch_learn_scm import _artifact, _norm_metrics, _rule_key, _s
 
-ENGINES = ["host", "device-argmax"]
+ENGINES = ["host", "device", "device-argmax"]
 
 
 def _tied_dense(seed, n_genomes=30, n_kmers=120, n_classes=2, mirror=True):
@@ -196,31 +196,70 @@ def test_learn_cart_multiclass_matches_jax(tmp_path, criterion, engine):
     assert "confusion_matrix" in want["test"]
 
 
-def test_exact_engine_and_mesh_raise_instead_of_switching(tmp_path):
+def test_exact_engine_and_mesh_raise_instead_of_switching(tmp_path,
+                                                          monkeypatch):
+    """No engine quietly runs another: the exact engine serves its own
+    frontiers (and gives the host engine's model), and a mesh still raises
+    until the multi-device engines are ported."""
+    from grm_tpu_torch.parallel import cart_exact, cart_forest
+
     dense, labels = _tied_dense(2)
     path, _ = _artifact(tmp_path, dense, labels, "ex", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        learn_CART(dataset_file=path, engine="device", device="cpu", **CV)
+    served = []
+    orig = cart_exact.cart_frontier_candidates
+
+    def spy(*args, **kwargs):
+        served.append(len(args[1]))
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(cart_forest, "cart_frontier_candidates", spy)
+    got = _cart_fingerprint(learn_CART(dataset_file=path, engine="device",
+                                       device="cpu", **CV))
+    assert served and sum(served) > 0
+    assert got == _cart_fingerprint(learn_CART(dataset_file=path,
+                                               engine="host", device="cpu",
+                                               **CV))
+    for engine in ("host", "device"):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            learn_CART(dataset_file=path, engine=engine, mesh=object(),
+                       device="cpu", **CV)
     with pytest.raises(NotImplementedError, match="mesh"):
-        learn_CART(dataset_file=path, engine="host", mesh=object(),
-                   device="cpu", **CV)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cart.DecisionTreeClassifier("gini", 3, 2, {0: 1.0, 1: 1.0},
-                                         engine="device")
+                                         engine="device", mesh=object())
     with pytest.raises(ValueError):
         learn_CART(dataset_file=path, engine="gpu", device="cpu", **CV)
 
 
 def test_deferred_equiv_raises_if_one_turns_up(tmp_path):
+    """A deferred equivalence set that turns up on the chosen tree resolves
+    to the set the host engine computes at once (the root split's winning
+    tuple at the largest train occurrence); with nothing deferred the
+    resolver does nothing."""
     dense, labels = _tied_dense(2)
     path, _ = _artifact(tmp_path, dense, labels, "de", 2)
     model = learn_CART(dataset_file=path, engine="host", device="cpu",
                        **CV)[4]
-    port_exp._resolve_deferred_equiv(model.decision_tree)  # nothing deferred
-    model.decision_tree.rule.equivalent_rules_idx = port_cart.DeferredEquiv(
-        np.array([1]), -1)
-    with pytest.raises(NotImplementedError, match="exact CART"):
-        port_exp._resolve_deferred_equiv(model.decision_tree)
+    dataset = GrmDataset(path, device="cpu")
+    root = model.decision_tree
+    want = np.asarray(root.rule.equivalent_rules_idx)
+    port_exp._resolve_deferred_equiv(dataset, "sp", root, [])
+    np.testing.assert_array_equal(root.rule.equivalent_rules_idx, want)
+    assert len(want) > 1
+    # The spec of the root split: its tuple of left counts (one key), at the
+    # train occurrence its equivalent columns share.
+    x = dataset.get_matrix_columns(want)
+    classes = sorted(root.class_examples_idx)
+    n_node = [len(root.class_examples_idx[c]) for c in classes]
+    keys = np.zeros(len(want), np.int64)
+    for c, n in zip(classes, n_node):
+        keys = keys * (n + 1) + x[root.class_examples_idx[c]].sum(0)
+    train = dataset.get_split("sp").train_genome_idx
+    occ = x[train].sum(0)
+    assert len(set(occ.tolist())) == 1
+    root.rule.equivalent_rules_idx = port_cart.DeferredEquiv(
+        np.unique(keys), int(occ[0]))
+    port_exp._resolve_deferred_equiv(dataset, "sp", root, [])
+    np.testing.assert_array_equal(root.rule.equivalent_rules_idx, want)
 
 
 def _grown_trees(path, criterion):
