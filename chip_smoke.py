@@ -36,7 +36,11 @@ Phases (any failure exits non-zero and prints no result):
    without an exclusion mask, Gini and cross-entropy, every node with its
    own train mask (nodes of different trees), thresholds from pass 1 with
    the engine's margin, and an all-hit node (one example of each of two
-   classes, threshold +inf: nearly every column on one of four keys).
+   classes, threshold +inf: nearly every column on one of four keys); at
+   W = 157 (the A fragments staged in shared memory) 65 nodes of two and
+   of three classes. The tuple tables' pass bitmaps on their own
+   (pass_bitmap): C = 2, 3 and 8, a lattice of exactly 65,536 keys,
+   thresholds of -inf and +inf, an empty class.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
@@ -92,7 +96,9 @@ Phases (any failure exits non-zero and prints no result):
    frontier of that size with the engine's thresholds, and at an all-hit
    node (the hot-key case), each equal to its plain version, with bounds as
    above (the distinct splits' divisions and logs, the b1 counting of N x
-   (C + 1) mask rows, the matrix read and the outputs).
+   (C + 1) mask rows, the matrix read and the outputs); the tuple tables'
+   pass-bitmap fill also on its own, on a line of its own. Every timing
+   line carries the card's ``nvidia-smi`` name and power limit.
 
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
@@ -167,8 +173,10 @@ KERNEL_FUNCTIONS = {
     "scm_sweep_argmax": "scm_sweep_kernel<0,",
     "scm_sweep_sbmax": "scm_sweep_kernel<1,",
     "cart_sweep": ("cart_sweep_kernel", "cart_sweep_table_kernel"),
-    "cart_exact_tuples": "cart_exact_tuples_kernel",
-    "cart_exact_select": "cart_exact_select_kernel",
+    "cart_exact_tuples": ("cart_exact_tuples_kernel",
+                          "cart_exact_bitmap_kernel"),
+    "cart_exact_select": ("cart_exact_select_kernel",
+                          "cart_exact_write_kernel"),
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -469,6 +477,40 @@ def exact_thresholds(matrix, masks, n_node, priors, totals, criterion, limit,
     _, gmin = cs.cart_frontier_scores(matrix, masks, n_node, priors, totals,
                                       criterion, limit, excl=excl)
     return _thresh_from_gmin(gmin, float(masks.shape[1])).contiguous()
+
+
+# Pass-bitmap cases of phase 3 and tests/test_torch_cuda.py: (n_node rows,
+# share of each lattice passing). C = 2, 3 and 8; a lattice of exactly
+# S_MAX; thresholds of -inf (no key passes) and +inf (every key with two
+# non-empty children); an empty class; a node of one example.
+BITMAP_CASES = [
+    ([[255, 255], [3, 7], [0, 9], [1, 0]], [0.01, 0.3, np.inf, np.inf]),
+    ([[40, 30, 20], [7, 0, 5], [1, 1, 1]], [0.02, -np.inf, np.inf]),
+    ([[2, 1, 3, 0, 1, 2, 1, 1], [1] * 8], [0.1, np.inf]),
+]
+
+
+def bitmap_inputs(rng, rows, shares, criterion, device):
+    """(n_node, scale, thresh) of a pass-bitmap case: a finite share sets the
+    node's threshold at that quantile of its lattice's scores."""
+    import torch
+
+    from grm_tpu_torch.ops import cart_exact as ce
+    from grm_tpu_torch.ops import cart_sweep as cs
+
+    n_node = torch.from_numpy(np.asarray(rows, np.int32))
+    n, c = n_node.shape
+    scale = torch.from_numpy((rng.rand(n, c) + 0.1).astype(np.float32))
+    thresh = torch.tensor(shares, dtype=torch.float32)
+    for i, q in enumerate(shares):
+        if np.isfinite(q):
+            size = int(ce.lattice_sizes(n_node[i:i + 1])[0])
+            left = torch.from_numpy(np.stack(ce.decode_keys(
+                np.arange(size), n_node[i].numpy())))[None]
+            score, ok = cs._split_scores(left, n_node[i:i + 1],
+                                         scale[i:i + 1], criterion)
+            thresh[i] = float(torch.quantile(score[ok].double(), q))
+    return n_node.to(device), scale.to(device), thresh.to(device)
 
 
 def winning_keys(rows, n):
@@ -774,7 +816,21 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
                     exact_case(mat, n_genomes, n, c, criterion, excl_on)
     for criterion in CART_CRITERIA:  # W = 157: nodes over grid rows
         exact_case(m, wide, 65, 2, criterion, True)
+        exact_case(m, wide, 65, 3, criterion, False)
         exact_case(m, wide, 18, 3, criterion, False)
+    # The pass bitmaps on their own: C = 2, 3 and 8, a lattice of exactly
+    # S_MAX, thresholds of -inf and +inf, an empty class.
+    for rows, shares in BITMAP_CASES:
+        for criterion in CART_CRITERIA:
+            n_node, scale, thresh = bitmap_inputs(rng, rows, shares,
+                                                  criterion, device)
+            want = ce.pass_bitmap_plain(n_node, scale, thresh, criterion)
+            record("cart_exact_tuples",
+                   ce.pass_bitmap(n_node, scale, thresh, criterion), want,
+                   "pass bitmap %s %s" % (rows, criterion))
+            if not bool((want[0] != 0).any()):
+                raise AssertionError("pass bitmap: no key passed at %s"
+                                     % rows)
     return worst, ulps
 
 
@@ -918,6 +974,7 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
     matrix = bm.data
     w, k = matrix.shape
     rows = {}
+    card = nvidia_smi("name,power.limit")
 
     def bound(nbytes, popc, special):
         """The least time for ``nbytes`` moved, ``popc`` AND + POPC word
@@ -959,7 +1016,8 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
         log(json.dumps({"kernel": key or name, "shape": shape,
                         **rows[key or name], "bound_what": bound_what,
                         "timed_by": timed_by, "event_ms": event_ms,
-                        "launches": {e: paths[e][name] for e in paths}}))
+                        "launches": {e: paths[e][name] for e in paths},
+                        "card": card}))
 
     # The argmax engine's full-train step: two masks over the whole matrix.
     masks = _words(rng, (2, w), device)
@@ -1048,11 +1106,11 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                 compare=lambda got, want: compare_cart_blocks(
                     got, want, criterion)[0],
                 key="cart_sweep:" + how + criterion)
-    time_exact_kernels(row, rng, matrix, device, exact_sizes)
+    time_exact_kernels(row, rng, matrix, device, exact_sizes, card)
     return rows
 
 
-def time_exact_kernels(row, rng, matrix, device, exact_sizes):
+def time_exact_kernels(row, rng, matrix, device, exact_sizes, card):
     """Phase 6's rows of the exact CART kernels (Gini, the CLI's default
     criterion), through ``row`` of :func:`time_kernels`: the tuple tables at
     the largest frontier the exact engine gave them, and the equivalence
@@ -1061,7 +1119,8 @@ def time_exact_kernels(row, rng, matrix, device, exact_sizes):
     engine's thresholds; the gather compaction at the tables' frontier; and
     both at an all-hit node (one example of each of two classes, every
     valid split passing: nearly every column on one of four keys, the
-    hot-key case)."""
+    hot-key case). The tuple tables' pass-bitmap fill is also timed on its
+    own at the largest frontier, on a line of its own beside ``card``."""
     import torch
 
     from grm_tpu_torch.ops import cart_exact as ce
@@ -1128,6 +1187,15 @@ def time_exact_kernels(row, rng, matrix, device, exact_sizes):
             compare=exact("cart_exact_tuples"),
             key="cart_exact_tuples" + (":" + tag if tag else ""))
         if not tag:
+            # The pass-bitmap fill alone (a part of every tuples call).
+            fill = lambda: ce.pass_bitmap(n_node, scale, thresh, criterion)
+            fill_ms, timed_by = device_ms(fill, 5,
+                                          "cart_exact_bitmap_kernel")
+            log(json.dumps({"fill": "cart_exact_tuples pass bitmap",
+                            "shape": "N=%d C=%d %s; %d keys"
+                            % (n, c, criterion, tables), "ms": fill_ms,
+                            "timed_by": timed_by,
+                            "event_ms": time_cuda(fill, 5), "card": card}))
             # The gather compaction at the same frontier.
             gargs = (matrix, masks, train, n_node, scale, criterion, k,
                      "gather")

@@ -6,10 +6,10 @@ defaults to ``cuda``.
     python -m grm_tpu_torch learn scm --dataset ds.h5 --split sp [--device cpu]
     python -m grm_tpu_torch learn tree --dataset ds.h5 --split sp [--device cpu]
 
-``learn tree`` keeps ``grm learn tree``'s engines and its default: the exact
-device engine (``--engine device``) on the card, ``host`` with ``--device
-cpu``; ``--engine device --device cpu`` runs the exact engine's plain
-PyTorch versions.
+Both keep the reference's engines and its default: the exact device engine
+(``--engine device``) on the card, ``host`` with ``--device cpu``, as
+``grm`` picks ``host`` on a CPU backend; ``--engine device --device cpu``
+runs the exact engine's plain PyTorch versions.
 
 The other commands of ``grm_tpu.cli`` are still to port (ROADMAP.md).
 """
@@ -63,11 +63,12 @@ def _cmd_learn_scm(argv):
     parser.add_argument("--n-cpu", "--n-cores", type=int, default=1)
     parser.add_argument("--engine",
                         choices=["host", "device", "device-argmax"],
-                        default="device",
+                        default=None,
                         help="host = reference selection on the host; "
                              "device = exact device engine (bit-identical "
-                             "to host; the default); device-argmax = "
-                             "fastest CV, lowest-index tie resolution.")
+                             "to host); device-argmax = fastest CV, "
+                             "lowest-index tie resolution. Default: device "
+                             "on cuda, host with --device cpu.")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; fails without CUDA) or cpu "
                              "(plain PyTorch versions of the kernels).")
@@ -77,6 +78,8 @@ def _cmd_learn_scm(argv):
     parser.add_argument("--authorized-rules", type=str, default="",
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.engine is None:
+        args.engine = "host" if args.device == "cpu" else "device"
     if args.verbose:
         logging.basicConfig(level=logging.DEBUG)
     progress = _progress_printer(args.progress)

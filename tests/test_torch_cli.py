@@ -1,6 +1,6 @@
-"""The port's CLI (``python -m grm_tpu_torch learn scm --device cpu``, exact
-device engine by default; ``learn tree --device cpu``, host engine by
-default there, and its exact and argmax device engines) against ``grm learn
+"""The port's CLI (``python -m grm_tpu_torch learn scm --device cpu`` and
+``learn tree --device cpu``, host engine by default there, and their exact
+and argmax device engines) against ``grm learn
 scm --engine host`` and ``grm learn tree``: every report file is equal, apart from the running time and the
 lines that say how each ran (``engine``, ``device`` and ``n_devices`` in the
 configuration)."""
@@ -146,3 +146,21 @@ def test_port_cli_learn_tree_exact_engine_ends_with_an_error(artifact):
                          {"model.fasta", "model_rule_0_equiv.fasta"})
     equiv = (got_dir / "model_rule_0_equiv.fasta").read_text()
     assert equiv.count(">") >= 2  # the planted tie: columns 9 and 33
+
+
+@pytest.mark.parametrize("engine,want", [(None, "host"),
+                                         ("device", "device")])
+def test_port_cli_learn_scm_engine_default_on_the_cpu(artifact, engine, want):
+    """``learn scm --device cpu`` without ``--engine`` runs the host engine,
+    as ``grm learn scm`` does on a CPU backend; ``--engine device`` still
+    runs the exact engine there. The engine that ran is the configuration's
+    (``config.json``, written from the parsed arguments), and both give the
+    reference's reports."""
+    common = ["learn", "scm", "--dataset", "ds.h5", "--split", "sp",
+              "--p", "0.5", "4.0", "--max-rules", "3", "--random-seed", "5"]
+    port = ["--device", "cpu"] + (["--engine", engine] if engine else [])
+    want_dir, got_dir = _both_clis(artifact, "scm_engine_%s" % engine,
+                                   common, ["--engine", "host"], port)
+    config = json.loads((got_dir / "config.json").read_text())
+    assert config["engine"] == want and config["device"] == "cpu"
+    _assert_same_outputs(want_dir, got_dir, {"model.fasta"})

@@ -11,6 +11,9 @@ exception is stated where it is made: the cross-entropy scores of
 ``cart_sweep``, whose ``logf`` and ``torch.log`` come from two toolkits.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,9 @@ from grm_tpu_torch.ops import cart_exact as ce
 from grm_tpu_torch.ops import cart_sweep as cs
 from grm_tpu_torch.ops import popcount as pc
 from grm_tpu_torch.ops import scm_sweep as sw
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke as smoke  # noqa: E402  (the pass-bitmap cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -468,3 +474,24 @@ def test_cart_exact_kernels_at_the_largest_genome_count(cuda, criterion):
     the nodes' masks pass the shared-memory budget, so they split over grid
     rows."""
     _exact_case(cuda, 65, 2, 20001, criterion, True, 17, n_genomes=5022)
+
+
+@pytest.mark.parametrize("criterion", cs.CRITERIA)
+def test_cart_exact_kernels_at_the_largest_genome_count_three_classes(
+        cuda, criterion):
+    """5022 genomes (W = 157) with three classes and no exclusion mask: the
+    A fragments staged in shared memory, the nodes over grid rows."""
+    _exact_case(cuda, 65, 3, 20001, criterion, False, 23, n_genomes=5022)
+
+
+@pytest.mark.parametrize("criterion", cs.CRITERIA)
+@pytest.mark.parametrize("case", range(len(smoke.BITMAP_CASES)))
+def test_pass_bitmap_kernel(cuda, case, criterion):
+    rng = np.random.RandomState(case)
+    n_node, scale, thresh = smoke.bitmap_inputs(
+        rng, *smoke.BITMAP_CASES[case], criterion, cuda)
+    got = ce.pass_bitmap(n_node, scale, thresh, criterion)
+    want = ce.pass_bitmap_plain(n_node, scale, thresh, criterion)
+    for g, x in zip(got, want):
+        _same(g, x)
+    assert bool((want[0] != 0).any())
