@@ -2,8 +2,9 @@
 """Smoke run of grm_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, checks the device engines
 against the host engines at reduced size, then drives ``learn scm`` at the
-published median scale through two engines and ``learn tree`` through
-three.
+published median scale through two engines, ``learn tree`` through
+three, and the device ingest (contigs -> packed matrix on the card ->
+``train_scm``) at 342 genomes of 4.4 Mbp.
 
     python3 chip_smoke.py [--seed N]
 
@@ -41,6 +42,16 @@ Phases (any failure exits non-zero and prints no result):
    of three classes. The tuple tables' pass bitmaps on their own
    (pass_bitmap): C = 2, 3 and 8, a lattice of exactly 65,536 keys,
    thresholds of -inf and +inf, an empty class.
+   The device ingest's kernels, exact equality of every output:
+   kmer_canon, build_columns (a budget the union fits, one it overflows),
+   merge_columns (the first 32 rows and the rest merged as two batches,
+   and their scatter) and compact_columns
+   at k = 9, 15, 16, 17, 31, 32, 33 and 64 and G = 1, 31, 32, 33 and 64
+   genome rows of 4173 codes (a multiple of no tile) with runs of 4s and a
+   contig shorter than k; then both builders on the card against the same
+   builders through the plain versions on the CPU, with and without the
+   singleton filter, at k = 16, 31 and 33, at the all-T k-mer of k = 16
+   and 32, and with a batch bucket that is exactly full.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
@@ -52,7 +63,14 @@ Phases (any failure exits non-zero and prints no result):
    sets). Then a three-class 600 x 50,000 artifact, whose large nodes take
    the exact engine's gather regime (which must run):
    ``learn_CART(engine="device")`` must give the host engine's whole
-   fingerprint there too.
+   fingerprint there too. Then the device ingest from FASTA files, 40
+   genomes of 200 kbp, k = 31: ``InMemoryDataset.from_contigs_device``
+   through the single builder and the batched one (batches of 32, without
+   and with the singleton filter) must give the host oracle's union and
+   matrix (each genome's ``sorted_kmers_np`` through the plain versions on
+   the CPU, merged with numpy), and ``train_scm`` on it the rules, split
+   and metrics of ``train_scm`` on a BitMatrix built on the host from the
+   same matrix.
 5. The main paths at full scale: 342 genomes x 9,600,000 k-mers (the
    published median, BASELINE.md), 5-fold split, built in memory from
    --seed with the benchmark's recipe (a planted 3-marker conjunction plus
@@ -97,13 +115,17 @@ Phases (any failure exits non-zero and prints no result):
    node (the hot-key case), each equal to its plain version, with bounds as
    above (the distinct splits' divisions and logs, the b1 counting of N x
    (C + 1) mask rows, the matrix read and the outputs); the tuple tables'
-   pass-bitmap fill also on its own, on a line of its own. Every timing
+   pass-bitmap fill also on its own, on a line of its own. The four ingest
+   kernels at phase 5's shapes (one 32-genome batch; every batch's union;
+   the merged matrix), each a call of its wrapper by CUDA events with the
+   hand kernels' own device time beside it, against the bytes bound, and
+   ``torch.sort`` at one batch on a line of its own. Every timing
    line carries the card's ``nvidia-smi`` name and power limit.
 
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
-the sum of the five paths' counts and ``launches_by_path`` gives each
+the sum of the six paths' counts and ``launches_by_path`` gives each
 path's own. Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
@@ -130,6 +152,20 @@ TRI_GENOMES, TRI_KMERS = 600, 50_000
 SMALL_DEPTH = 3  # phase 4: the depth of the planted 3-marker conjunction
 N_FOLDS = 5
 MAX_RULES = 10
+# The ingest path (phase 5): the published median genome count, each genome
+# a copy of one M. tuberculosis-sized backbone (4.4 Mbp) with 20,000 SNPs
+# from a shared pool, sized so that the union after the singleton filter
+# lands near the published median of 9.6M k-mers.
+INGEST_GENOMES, INGEST_LENGTH = 342, 4_400_000
+INGEST_SNPS, INGEST_POOL = 20_000, 115_000
+INGEST_UNION = (8_500_000, 11_000_000)  # where the union must land
+INGEST_K, INGEST_BATCH = 31, 32
+INGEST_BUDGET = 1 << 24  # k_budget and batch_budget, as bench.py:181 sets them
+SMALL_INGEST = (40, 200_000)  # phase 4: genomes x bases, from FASTA files
+# Phase 3's ingest kernel cases (tests/test_torch_cuda.py takes them too).
+INGEST_CASE_KS = (9, 15, 16, 17, 31, 32, 33, 64)
+INGEST_CASE_GENOMES = (1, 31, 32, 33, 64)
+INGEST_CASE_LENGTH = 2 * 2048 + 77  # a multiple of no tile or bucket
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, throughput, cc 9.0
 
@@ -151,13 +187,25 @@ KERNELS = {
                           "grm_tpu/parallel/cart_exact.py:165"),
     "cart_exact_select": ("grm_tpu_torch/csrc/cart_exact.cu",
                           "grm_tpu/parallel/cart_exact.py:437"),
+    # The device ingest's XLA programs (no pallas_call): _extract_canon;
+    # _build after its sort; _merge_ranks with _scatter_batch_columns
+    # (:207); _compact_singletons.
+    "kmer_canon": ("grm_tpu_torch/csrc/kmer.cu", "grm_tpu/ops/kmer.py:137"),
+    "build_columns": ("grm_tpu_torch/csrc/device_build.cu",
+                      "grm_tpu/parallel/device_build.py:92"),
+    "merge_columns": ("grm_tpu_torch/csrc/device_build.cu",
+                      "grm_tpu/parallel/device_build.py:158"),
+    "compact_columns": ("grm_tpu_torch/csrc/device_build.cu",
+                        "grm_tpu/parallel/device_build.py:222"),
 }
 # The kernels each main path is built on. learn scm: the exact engine's
 # pass 1 and pass 2; the argmax engine's CV sweep, its winner-block recount,
 # and its full-train fit (parallel/mesh.py). learn tree: the exact engine's
 # pass 1 (the frontier sweep), its tuple tables and its compaction of the
 # chosen master's equivalence sets; the argmax engine's frontier sweep; the
-# host engine's per-node class counts.
+# host engine's per-node class counts. Device ingest: the windows, the
+# batch columns, the union merge, the singleton filter (its column counts by
+# popcount_colsum), then train_scm's greedy steps (popcount_colsum).
 PATH_KERNELS = {
     "device": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "device-argmax": ("scm_sweep_argmax", "popcount_colsum_pairs",
@@ -165,6 +213,8 @@ PATH_KERNELS = {
     "tree-device": ("cart_sweep", "cart_exact_tuples", "cart_exact_select"),
     "tree-device-argmax": ("cart_sweep",),
     "tree-host": ("popcount_colsum",),
+    "ingest-device": ("kmer_canon", "build_columns", "merge_columns",
+                      "compact_columns", "popcount_colsum"),
 }
 # The CUDA function each wrapper launches, as torch.profiler names it.
 KERNEL_FUNCTIONS = {
@@ -177,6 +227,11 @@ KERNEL_FUNCTIONS = {
                           "cart_exact_bitmap_kernel"),
     "cart_exact_select": ("cart_exact_select_kernel",
                           "cart_exact_write_kernel"),
+    "kmer_canon": "kmer_canon_kernel",
+    "build_columns": ("columns_flags_kernel", "build_columns_kernel"),
+    "merge_columns": ("columns_flags_kernel", "merge_dest_kernel",
+                      "scatter_columns_kernel"),
+    "compact_columns": ("compact_flags_kernel", "compact_gather_kernel"),
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -264,6 +319,82 @@ def build_artifact(n_genomes, n_kmers, seed, device, n_classes=2):
     split_with_proportion(mem, "sp", train_prop=0.67, random_seed=42,
                           n_folds=N_FOLDS, device=device)
     return mem
+
+
+# -- ingest data --------------------------------------------------------------
+
+def ingest_genomes(n_genomes, length, n_snps, pool, seed, k=INGEST_K):
+    """Genomes for the ingest path: each a copy of one random backbone of
+    ``length`` bases (from ``seed``) carrying ``n_snps`` SNPs drawn from a
+    shared pool of ``pool`` sites, plus a planted 3-marker conjunction as
+    synthetic_arrays plants it (genomes sorted by label; marker i absent on
+    third i of the negatives, lightly flip-noised). A marker is a SNP at a
+    site no pool site comes within k of, so that its k windows are the same
+    in every genome that carries it.
+
+    Returns (int8 code arrays, labels, the canonical k-mer strings of each
+    marker's windows)."""
+    rng = np.random.RandomState(seed)
+    backbone = rng.randint(0, 4, length).astype(np.int8)
+    sites = rng.choice(np.arange(k, length - k), pool, replace=False)
+    alt = ((backbone[sites] + rng.randint(1, 4, pool)) % 4).astype(np.int8)
+    near = np.zeros(length + 1, np.int32)  # pool sites within k of a base
+    np.add.at(near, np.maximum(sites - k, 0), 1)
+    np.add.at(near, np.minimum(sites + k + 1, length), -1)
+    near = np.cumsum(near)[:length] > 0
+    markers = []
+    for s in rng.permutation(np.flatnonzero(~near[k:length - k]) + k):
+        if all(abs(s - m) > k for m in markers):
+            markers.append(int(s))
+            if len(markers) == 3:
+                break
+    else:
+        raise ValueError("the SNP pool leaves no room for 3 markers")
+    markers = np.array(markers)
+    malt = ((backbone[markers] + rng.randint(1, 4, 3)) % 4).astype(np.int8)
+    labels = (np.arange(n_genomes) * 2 // n_genomes).astype(np.uint8)
+    carries = np.ones((3, n_genomes), bool)
+    thirds = np.array_split(rng.permutation(np.where(labels == 0)[0]), 3)
+    for i in range(3):
+        carries[i, thirds[i]] = False
+        flips = rng.choice(n_genomes, max(1, n_genomes * (1 + i) // 200),
+                           replace=False)
+        carries[i, flips] = ~carries[i, flips]
+    codes_list = []
+    for g in range(n_genomes):
+        c = backbone.copy()
+        chosen = rng.choice(pool, n_snps, replace=False)
+        c[sites[chosen]] = alt[chosen]
+        c[markers[carries[:, g]]] = malt[carries[:, g]]
+        codes_list.append(c)
+    comp = str.maketrans("ACGT", "TGCA")
+    marker_kmers = set()
+    for s, a in zip(markers, malt):
+        seq = backbone[s - k + 1:s + k].copy()
+        seq[k - 1] = a
+        text = "".join("ACGT"[b] for b in seq)
+        for t in range(k):
+            w = text[t:t + k]
+            marker_kmers.add(min(w, w.translate(comp)[::-1]))
+    return codes_list, labels, marker_kmers
+
+
+def ingest_codes(rng, n_genomes, length, k):
+    """(n_genomes, length) int8 codes for phase 3's kernel cases: a shared
+    random half (columns with many genomes), a repeat inside each row
+    (duplicate windows), runs of 4s (invalid bases and contig separators),
+    and, in row 0, a contig shorter than k followed by padding."""
+    codes = rng.randint(0, 4, (n_genomes, length)).astype(np.int8)
+    codes[:, :length // 2] = codes[0, :length // 2]
+    codes[:, length // 2:length // 2 + 300] = codes[:, :300]
+    for row in codes:
+        for _ in range(rng.randint(1, 6)):
+            at = rng.randint(0, length)
+            row[at:at + rng.randint(1, 40)] = 4
+    short = max(k - 1, 1)
+    codes[0] = 4
+    codes[0, :short] = rng.randint(0, 4, short)
+    return codes
 
 
 def _s(x):
@@ -834,6 +965,175 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
     return worst, ulps
 
 
+def exact_err(got, want):
+    """0.0 where every tensor of ``got`` equals ``want``'s (None where
+    both are None), else the largest absolute difference (inf for another
+    shape or type)."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                return float("inf")
+            continue
+        a, b = a.cpu(), b.cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return float("inf")
+        if not torch.equal(a, b):
+            worst = max(worst, float((a.double() - b.double()).abs().max())
+                        or float("inf"))
+    return worst
+
+
+def full_bucket_genomes(rng, k, n_genomes=32, n_kmers=1024):
+    """Genomes whose canonical k-mers number exactly ``n_kmers`` together
+    (each genome is ``n_kmers`` / 32 of them, one contig each, plus one
+    shared k-mer), so that a batch budget of ``n_kmers`` fills its bucket
+    exactly."""
+    from grm_tpu_torch.ops.kmer import encode_contigs
+
+    comp = str.maketrans("ACGT", "TGCA")
+    canon = lambda s: min(s, s.translate(comp)[::-1])
+    kmers = {}
+    while len(kmers) < n_kmers:
+        s = "".join(rng.choice(list("ACGT"), k))
+        kmers.setdefault(canon(s), s)
+    seqs = list(kmers.values())
+    per = n_kmers // n_genomes
+    return [encode_contigs(seqs[g * per:(g + 1) * per] + [seqs[-1]])
+            for g in range(n_genomes)]
+
+
+def ingest_case(device, rng, k, n_genomes, record):
+    """One of phase 3's ingest kernel cases (k, G): kmer_canon,
+    build_columns (with a budget the union fits and one it overflows),
+    compact_columns, merge_columns (rows [0, 32) and [32, G) merged, as the
+    batched builder merges batches, and their scatter) on the card against
+    their plain versions on the same inputs. ``record(name, got, want,
+    what)`` compares."""
+    import torch
+
+    from grm_tpu_torch.ops import device_build as db
+    from grm_tpu_torch.ops import kmer as km
+    from grm_tpu_torch.parallel import device_build as pdb
+
+    g, n = n_genomes, INGEST_CASE_LENGTH
+    nw = km.n_words_for_k(k)
+    what = "k=%d G=%d L=%d" % (k, g, n)
+    codes = torch.from_numpy(ingest_codes(rng, g, n, k)).to(device)
+    single = k <= km.MAX_SINGLE_KEY_K
+    record("kmer_canon", km.kmer_canon(codes, k),
+           km.kmer_canon_plain(codes, k), what)
+    if single:
+        record("kmer_canon", km.kmer_canon(codes, k, key=True),
+               km.kmer_canon_plain(codes, k, key=True), what + " key")
+    keys, valid = km.window_keys(codes, k)
+    keys, perm, valid = km.sort_keys(keys, valid)
+    for budget in (g * n, 700):
+        record("build_columns",
+               db.build_columns(keys, perm, valid, nw, n, budget),
+               db.build_columns_plain(keys, perm, valid, nw, n, budget),
+               "%s k_budget=%d" % (what, budget))
+    matrix, union, n_kmers = db.build_columns(keys, perm, valid, nw, n,
+                                              g * n)
+    record("compact_columns", db.compact_columns(matrix, union, n_kmers),
+           db.compact_columns_plain(matrix, union, n_kmers), what)
+    bounds = [0, 32, g] if g > 32 else [0, g]
+    parts = [pdb._build(codes[lo:hi].contiguous(), k, g * n, False)
+             for lo, hi in zip(bounds, bounds[1:])]
+    words = torch.cat([p[1] for p in parts])
+    valids = torch.cat([torch.arange(g * n, device=device) < p[2]
+                        for p in parts])
+    mkeys, mperm, mvalid = km.sort_keys(km.pair_keys(words.T, valids),
+                                        None if single else valids)
+    for budget in (g * n, 700):
+        got = db.merge_ranks(mkeys, mperm, mvalid, nw, budget)
+        record("merge_columns", got,
+               db.merge_ranks_plain(mkeys, mperm, mvalid, nw, budget),
+               "%s merge k_budget=%d" % (what, budget))
+        final = torch.zeros((-(-g // 32), budget), dtype=torch.int32,
+                            device=device)
+        plain = final.clone()
+        for i, (p, lo) in enumerate(zip(parts, bounds)):
+            dest = got[0][i * g * n:(i + 1) * g * n]
+            db.scatter_batch_columns(final, p[0], dest, lo // 32)
+            db.scatter_batch_columns_plain(plain, p[0], dest, lo // 32)
+        record("merge_columns", final, plain,
+               "%s scatter k_budget=%d" % (what, budget))
+
+
+def ingest_builder_cases(device, rng, record):
+    """Phase 3's builder cases: build_matrix_device and
+    build_matrix_device_batched on the card against the same builders run
+    through the plain versions on the CPU, with and without the singleton
+    filter, at k = 16, 31 and 33 (70 genomes: three batches, a ragged
+    tail), at the all-T k-mer of k = 16 and 32, and with a batch whose
+    bucket is exactly full."""
+    from grm_tpu_torch.ops import kmer as km
+    from grm_tpu_torch.parallel import device_build as pdb
+
+    def builders(codes_list, k, what, **batched):
+        for fs in (False, True):
+            for build, kw in ((pdb.build_matrix_device, {}),
+                              (pdb.build_matrix_device_batched, batched)):
+                got = build(codes_list, k, filter_singleton=fs,
+                            device=device, **kw)
+                want = build(codes_list, k, filter_singleton=fs,
+                             device="cpu", **kw)
+                record("builders", (got.matrix, got.union_words),
+                       (want.matrix, want.union_words),
+                       "%s %s filter=%s" % (build.__name__, what, fs))
+                if got.n_kmers != want.n_kmers:
+                    raise AssertionError("%s %s: %d k-mers, plain %d"
+                                         % (build.__name__, what,
+                                            got.n_kmers, want.n_kmers))
+
+    for k in (16, 31, 33):
+        codes_list, _, _ = ingest_genomes(70, 3000, 10, 40, k, k=k)
+        builders(codes_list, k, "k=%d, 70 genomes" % k, batch_budget=16000)
+    for k in (16, 32):
+        poly_t = "T" * (k + 3)
+        contig_sets = [
+            [poly_t + "N" + "".join(rng.choice(list("ACGT"), 60))],
+            ["".join(rng.choice(list("ACGT"), 60)) + "NN" + poly_t],
+            ["N" * (k + 2), "".join(rng.choice(list("ACGT"), 60))],
+        ]
+        builders([km.encode_contigs(c) for c in contig_sets], k,
+                 "all-T k=%d" % k)
+    full = full_bucket_genomes(rng, 31)
+    dm = pdb.build_matrix_device_batched(full, 31, batch_budget=1024,
+                                         device=device)
+    if dm.n_kmers != 1024:
+        raise AssertionError("the full-bucket batch holds %d k-mers, not "
+                             "1024" % dm.n_kmers)
+    builders(full, 31, "bucket exactly full", batch_budget=1024)
+
+
+def check_ingest_kernels(device):
+    """Phase 3, ingest: kmer_canon, build_columns, merge_columns and
+    compact_columns equal their plain versions exactly on the card at every
+    (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case), then the
+    builders (ingest_builder_cases). Returns the largest error per kernel
+    (all 0.0)."""
+    rng = np.random.RandomState(5)
+    worst = {}
+
+    def record(name, got, want, what):
+        err = exact_err(got, want)
+        worst[name] = max(worst.get(name, 0.0), err)
+        if err != 0.0:
+            raise AssertionError("%s differs from its plain version at %s "
+                                 "(max abs err %r)" % (name, what, err))
+
+    for k in INGEST_CASE_KS:
+        for g in INGEST_CASE_GENOMES:
+            ingest_case(device, rng, k, g, record)
+    ingest_builder_cases(device, rng, record)
+    return worst
+
 # -- timing -------------------------------------------------------------------
 
 def time_cuda(fn, reps):
@@ -1232,6 +1532,326 @@ def time_exact_kernels(row, rng, matrix, device, exact_sizes, card):
             key="cart_exact_select" + (":equiv " + tag if tag else ""))
 
 
+def write_fasta(directory, codes_list):
+    """One FASTA file per genome, two contigs each (cut at a third), 80
+    bases a line. Returns (genome id, path) pairs."""
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    specs = []
+    for g, codes in enumerate(codes_list):
+        text = lut[codes].tobytes().decode()
+        cut = len(text) // 3
+        path = os.path.join(directory, "g%05d.fna" % g)
+        with open(path, "w") as f:
+            for i, contig in enumerate((text[:cut], text[cut:])):
+                f.write(">g%05d_c%d\n" % (g, i))
+                for lo in range(0, len(contig), 80):
+                    f.write(contig[lo:lo + 80] + "\n")
+        specs.append(("g%05d" % g, path))
+    return specs
+
+
+def host_union(specs, k, min_genomes):
+    """The host oracle of phase 4: each genome's ``sorted_kmers_np``
+    through the plain versions on the CPU, merged with numpy. Returns the
+    (U, nw) uint32 union of the k-mers in at least ``min_genomes`` genomes
+    and its (genomes, U) presence (k <= 32)."""
+    from grm_tpu_torch.ops.kmer import encode_contigs, sorted_kmers_np
+    from grm_tpu_torch.utils import fasta_to_sequences
+
+    def as_u64(words):
+        words = words.astype(np.uint64)
+        return words[:, 0] << np.uint64(32) | (
+            words[:, 1] if words.shape[1] > 1 else np.uint64(0))
+
+    per = [as_u64(sorted_kmers_np(encode_contigs(fasta_to_sequences(path)),
+                                  k, device="cpu")) for _, path in specs]
+    union, counts = np.unique(np.concatenate(per), return_counts=True)
+    union = union[counts >= min_genomes]
+    presence = np.stack([np.isin(union, kmers) for kmers in per])
+    words = np.stack([union >> np.uint64(32),
+                      union & np.uint64(0xFFFFFFFF)], 1).astype(np.uint32)
+    return words[:, :-(-k // 16)], presence
+
+
+class HostMatrixDataset:
+    """``train_scm``'s dataset surface over a BitMatrix uploaded from a host
+    copy of a DeviceDataset's matrix, with its columns unpacked on the
+    host: what phase 4 holds the device dataset to."""
+
+    def __init__(self, ds, device):
+        from grm_tpu_torch.ops.popcount import BitMatrix
+        from grm_tpu_torch.utils import unpack_binary_bytes_from_ints
+
+        packed = ds.dm.matrix[:, :ds.kmer_count].cpu().numpy().view(np.uint32)
+        self.genome_count, self.kmer_count = ds.genome_count, ds.kmer_count
+        self.labels, self.km = ds.labels, ds.km
+        self._bm = BitMatrix(packed, ds.genome_count, device=device)
+        self._dense = unpack_binary_bytes_from_ints(packed)[:ds.genome_count]
+
+    def bit_matrix(self, sharding=None):
+        return self._bm
+
+    def get_matrix_columns(self, columns):
+        columns = np.asarray(columns, dtype=np.int64)
+        inv = columns >= self.kmer_count
+        out = self._dense[:, np.where(inv, columns - self.kmer_count,
+                                      columns)].copy()
+        out[:, inv] = 1 - out[:, inv]
+        return out
+
+
+def pipeline_fingerprint(res):
+    """Everything train_scm decides: rules, split and metrics."""
+    norm = lambda m: {key: [float(x) for x in np.ravel(v)]
+                      for key, v in m.items()}
+    return {"rules": [str(r) for r in res.rules],
+            "train_idx": res.train_idx.tolist(),
+            "test_idx": res.test_idx.tolist(),
+            "train": norm(res.train_metrics), "test": norm(res.test_metrics)}
+
+
+def check_ingest_small(device, seed, n_genomes=SMALL_INGEST[0],
+                       length=SMALL_INGEST[1]):
+    """Phase 4, ingest: ``from_contigs_device`` from FASTA files (k = 31),
+    through the single builder and the batched one (genome_batch 32), its
+    union and matrix against the host oracle, without and (batched) with
+    the singleton filter; ``train_scm`` on each equal to ``train_scm`` on a
+    BitMatrix built on the host from the same matrix. Returns a summary
+    line."""
+    from grm_tpu_torch.pipeline import InMemoryDataset, train_scm
+    from grm_tpu_torch.utils import pack_binary_bytes_to_ints
+
+    scale = length / INGEST_LENGTH
+    codes_list, labels, _ = ingest_genomes(
+        n_genomes, length, max(1, round(INGEST_SNPS * scale)),
+        max(2, round(INGEST_POOL * scale)), seed)
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = write_fasta(tmp, codes_list)
+        by_id = {gid: int(y) for (gid, _), y in zip(specs, labels)}
+        oracle = {fs: host_union(specs, INGEST_K, 2 if fs else 1)
+                  for fs in (False, True)}
+        for batch, fs in ((None, False), (32, False), (32, True)):
+            what = "genome_batch=%s filter_singleton=%s" % (batch, fs)
+            ds = InMemoryDataset.from_contigs_device(
+                specs, by_id, INGEST_K, filter_singleton=fs,
+                genome_batch=batch, device=device)
+            union, presence = oracle[fs]
+            if ds.kmer_count != len(union) or not np.array_equal(
+                    ds.dm.union_kmers_host(), union):
+                raise AssertionError("from_contigs_device(%s): union of %d "
+                                     "k-mers != the host oracle's %d"
+                                     % (what, ds.kmer_count, len(union)))
+            want = pack_binary_bytes_to_ints(presence.astype(np.uint8), 32)
+            got = ds.dm.matrix[:, :len(union)].cpu().numpy().view(np.uint32)
+            if not np.array_equal(got, want):
+                raise AssertionError("from_contigs_device(%s): matrix != the "
+                                     "host oracle's" % what)
+            fp = pipeline_fingerprint(train_scm(ds, max_rules=MAX_RULES))
+            fp_host = pipeline_fingerprint(train_scm(
+                HostMatrixDataset(ds, device), max_rules=MAX_RULES))
+            if fp != fp_host:
+                raise AssertionError("train_scm(%s): device dataset != host "
+                                     "matrix:\n%s\n%s" % (what, fp, fp_host))
+            out.append("%s: %d k-mers, rules %s, test risk %.4f"
+                       % (what, ds.kmer_count, fp["rules"],
+                          fp["test"]["risk"][0]))
+    return out
+
+
+def ingest_path(codes_list, labels, device):
+    """Phase 5's ``ingest-device`` path: the batched build from codes
+    (bench.py:181), then ``train_scm``. Returns (the DeviceDataset, the
+    result, build seconds, fit seconds), each wall ending in a
+    synchronize."""
+    import torch
+
+    from grm_tpu_torch.parallel.device_build import build_matrix_device_batched
+    from grm_tpu_torch.pipeline import DeviceDataset, train_scm
+
+    ids = ["g%05d" % g for g in range(len(codes_list))]
+    t0 = time.time()
+    dm = build_matrix_device_batched(
+        codes_list, INGEST_K, genome_ids=ids, k_budget=INGEST_BUDGET,
+        genome_batch=INGEST_BATCH, batch_budget=INGEST_BUDGET,
+        filter_singleton=True, device=device)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    ds = DeviceDataset(dm, dict(zip(ids, labels.tolist())))
+    t0 = time.time()
+    res = train_scm(ds, model_type="conjunction", p=1.0, max_rules=MAX_RULES)
+    torch.cuda.synchronize()
+    return ds, res, t_build, time.time() - t0
+
+
+def run_ingest(device, seed, paths):
+    """Phase 5, the ``ingest-device`` path at the published median: its
+    launches go into ``paths``. Fails unless every kernel of the path ran
+    and a rule is a planted marker's k-mer. Returns the codes (phase 6
+    times the kernels on them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from grm_tpu_torch.ops import _build
+
+    t0 = time.time()
+    codes_list, labels, marker_kmers = ingest_genomes(
+        INGEST_GENOMES, INGEST_LENGTH, INGEST_SNPS, INGEST_POOL, seed)
+    log("    ingest data: %d genomes x %d bp (%d SNPs each from a pool of %d,"
+        " 3 planted markers) made in %.1f s (set-up)"
+        % (INGEST_GENOMES, INGEST_LENGTH, INGEST_SNPS, INGEST_POOL,
+           time.time() - t0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    ds, res, t_build, t_fit = ingest_path(codes_list, labels, device)
+    paths["ingest-device"] = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    mbp = INGEST_GENOMES * INGEST_LENGTH / 1e6
+    rules = [str(r) for r in res.rules]
+    log("    ingest-device: build %.3f s (%.1f Mbp/s, %.1f genomes/s), "
+        "union %d k-mers after the singleton filter (k_budget %d), fit "
+        "%.3f s; rules %s, train risk %.4f, test risk %.4f; peak device "
+        "memory %.2f GB; launches %s"
+        % (t_build, mbp / t_build, INGEST_GENOMES / t_build, ds.kmer_count,
+           INGEST_BUDGET, t_fit, rules, res.train_metrics["risk"][0],
+           res.test_metrics["risk"][0], peak / 1e9, paths["ingest-device"]))
+    if not INGEST_UNION[0] <= ds.kmer_count <= INGEST_UNION[1]:
+        raise AssertionError("ingest-device: union of %d k-mers outside %s"
+                             % (ds.kmer_count, INGEST_UNION))
+    hits = [r.kmer_sequence for r in res.rules
+            if r.type == "presence" and r.kmer_sequence in marker_kmers]
+    if not hits:
+        raise AssertionError("ingest-device learned no planted marker: %s"
+                             % rules)
+    missing = [k for k in PATH_KERNELS["ingest-device"]
+               if paths["ingest-device"][k] == 0]
+    if missing:
+        raise AssertionError("path 'ingest-device' launched no %s" % missing)
+    want = (ds.kmer_count, rules)
+    del ds, res
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ds, res, _, _ = ingest_path(codes_list, labels, device)
+    if (ds.kmer_count, [str(r) for r in res.rules]) != want:
+        raise AssertionError("the profiled ingest-device run learned "
+                             "another model")
+    del ds, res
+    rows = [(_device_us(e), e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    if not rows:
+        log("    device time by kernel: not measured (no device events)")
+        return codes_list
+    total = sum(r[0] for r in rows) / 1e3
+    sort_ms = sum(r[0] for r in rows if "sort" in r[1].lower()) / 1e3
+    log("    device time over ingest-device: %.2f ms = %.1f%% busy of the "
+        "%.3f s unprofiled wall; the sorts %.2f ms; by kernel:"
+        % (total, 100.0 * total / ((t_build + t_fit) * 1e3),
+           t_build + t_fit, sort_ms))
+    for us, key, count in sorted(rows, reverse=True)[:10]:
+        log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
+    return codes_list
+
+
+def time_ingest_kernels(codes_list, device, paths, card):
+    """Phase 6, ingest: each of the four kernels at phase 5's shapes (one
+    32-genome batch for kmer_canon and build_columns; every batch's union
+    for merge_columns; the merged matrix for compact_columns), equal to its
+    plain version on the same inputs, and torch.sort at one batch. ``ms``
+    is one call of the wrapper by CUDA events (its torch.cumsum and output
+    fills included), ``kernel_ms`` the hand kernels' own device time from
+    torch.profiler; ``bound_ms`` the bytes of the call's inputs read once
+    and outputs written once at the memory rate. Returns the rows."""
+    import torch
+
+    from grm_tpu_torch.ops import device_build as db
+    from grm_tpu_torch.ops import kmer as km
+    from grm_tpu_torch.parallel import device_build as pdb
+
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, reps, shape):
+        err = exact_err(kernel(), plain())
+        if err != 0.0:
+            raise AssertionError("%s differs from its plain version at the "
+                                 "main path's shapes (%r)" % (name, err))
+        ms = time_cuda(kernel, reps)
+        kernel_ms, timed_by = device_ms(kernel, reps, KERNEL_FUNCTIONS[name])
+        rows[name] = {"max_abs_err": err, "ms": ms,
+                      "plain_ms": time_cuda(plain, 1),
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "library_ms": None}
+        log(json.dumps({"kernel": name, "shape": shape, **rows[name],
+                        "kernel_ms": kernel_ms, "timed_by": timed_by,
+                        "launches": {e: paths[e][name] for e in paths},
+                        "card": card}))
+
+    batch = codes_list[:INGEST_BATCH]
+    n_cols = -(-max(len(c) for c in batch) // 4096) * 4096
+    codes = torch.full((len(batch), n_cols), 4, dtype=torch.int8)
+    for i, c in enumerate(batch):
+        codes[i, :len(c)] = torch.from_numpy(c)
+    codes = codes.to(device)
+    n = codes.numel()
+    nw = km.n_words_for_k(INGEST_K)
+    shape = "G=%d L=%d k=%d" % (len(batch), n_cols, INGEST_K)
+    row("kmer_canon",
+        lambda: km.kmer_canon(codes, INGEST_K, key=True),
+        lambda: km.kmer_canon_plain(codes, INGEST_K, key=True),
+        n * (1 + 8), 20, shape + " (the sort key)")
+    keys, _ = km.window_keys(codes, INGEST_K)
+    del codes
+    sort_ms = time_cuda(lambda: torch.sort(keys[0], stable=True), 5)
+    log(json.dumps({"library": "torch.sort", "shape": "%d int64 keys, "
+                    "stable, with indices (one batch)" % n, "ms": sort_ms,
+                    "library_ms": sort_ms,
+                    "bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "card": card}))
+    keys, perm, _ = km.sort_keys(keys)
+    bucket = INGEST_BUDGET
+    row("build_columns",
+        lambda: db.build_columns(keys, perm, None, nw, n_cols, bucket),
+        lambda: db.build_columns_plain(keys, perm, None, nw, n_cols, bucket),
+        16 * n + 4 * bucket * (-(-len(batch) // 32) + nw) + 4, 5,
+        "%d sorted rows, k_budget %d" % (n, bucket))
+    del keys, perm
+
+    batches = []
+    for lo in range(0, len(codes_list), INGEST_BATCH):
+        batches.append(pdb._build_codes(codes_list[lo:lo + INGEST_BATCH],
+                                        INGEST_K, bucket, device) + (lo,))
+    words = torch.cat([b[1] for b in batches])
+    valids = torch.cat([torch.arange(bucket, device=device) < b[2]
+                        for b in batches])
+    mkeys, mperm, _ = km.sort_keys(km.pair_keys(words.T, valids))
+    del words, valids
+    w_total = -(-len(codes_list) // 32)
+
+    def merge(ranks, scatter):
+        dest, union, n_merged = ranks(mkeys, mperm, None, nw, INGEST_BUDGET)
+        final = torch.zeros((w_total, INGEST_BUDGET), dtype=torch.int32,
+                            device=device)
+        for i, (b_matrix, _, _, lo) in enumerate(batches):
+            scatter(final, b_matrix, dest[i * bucket:(i + 1) * bucket],
+                    lo // 32)
+        return final, union, n_merged
+
+    r = mkeys.shape[1]
+    row("merge_columns", lambda: merge(db.merge_ranks, db.scatter_batch_columns),
+        lambda: merge(db.merge_ranks_plain, db.scatter_batch_columns_plain),
+        16 * r + 4 * r + 4 * INGEST_BUDGET * (nw + w_total) + 4, 3,
+        "%d batches x %d union rows, k_budget %d" % (len(batches), bucket,
+                                                     INGEST_BUDGET))
+    final, union, n_merged = merge(db.merge_ranks, db.scatter_batch_columns)
+    del batches, mkeys, mperm
+    row("compact_columns", lambda: db.compact_columns(final, union, n_merged),
+        lambda: db.compact_columns_plain(final, union, n_merged),
+        2 * 4 * INGEST_BUDGET * (w_total + nw) + 8, 20,
+        "W=%d K=%d, %d live columns" % (w_total, INGEST_BUDGET,
+                                        int(n_merged.item())))
+    return rows
+
+
 def profile_learn(what, run_once, wall, want):
     """One more run of the path ``what`` under torch.profiler:
     ``run_once()`` returns its fingerprint, which must be ``want``, the
@@ -1327,6 +1947,11 @@ def run(seed):
     log("[3] kernels equal their plain versions (max abs err %s; cart_sweep "
         "scores, largest distance in ulps %s) in %.1f s"
         % (worst, ulps, time.time() - t0))
+    t0 = time.time()
+    worst = check_ingest_kernels(device)
+    torch.cuda.synchronize()
+    log("    ingest kernels and builders equal their plain versions (max abs "
+        "err %s) in %.1f s" % (worst, time.time() - t0))
 
     # 4. device engine == host engine at reduced size
     t0 = time.time()
@@ -1379,6 +2004,12 @@ def run(seed):
         raise AssertionError("the three-class artifact took no gather "
                              "regime (%s)" % sorted(modes))
     del tri, host_out
+    t0 = time.time()
+    for line in check_ingest_small(device, seed):
+        log("    from_contigs_device, %dx%d from FASTA: union and matrix == "
+            "host oracle, train_scm == on a host-built BitMatrix; %s"
+            % (SMALL_INGEST + (line,)))
+    log("    ingest at reduced size checked in %.1f s" % (time.time() - t0))
 
     # 5. the main paths at full scale
     t0 = time.time()
@@ -1432,7 +2063,7 @@ def run(seed):
     walls = {}
     frontiers = []  # (nodes, criterion) of every cart_sweep launch
     exact_sizes = []  # (kernel, nodes, classes) of tree-device's launches
-    for path in PATH_KERNELS:
+    for path in runners:  # the learn paths; ingest-device runs after them
         _build.reset_launches()
         t0 = time.time()
         out, fp = runners[path]()
@@ -1492,6 +2123,9 @@ def run(seed):
                       lambda: runners[path]()[1], walls[path],
                       fingerprints[path])
 
+    # The device ingest path, on its own data.
+    codes_list = run_ingest(device, seed, paths)
+
     # 6. kernel times at the main paths' shapes
     log("[6] the card's measured rates, then kernel times at the main "
         "paths' shapes:")
@@ -1500,6 +2134,9 @@ def run(seed):
     machine_code()
     rows = time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                         max(n for n, _ in frontiers), exact_sizes)
+    del bm, mem
+    rows.update(time_ingest_kernels(codes_list, device, paths,
+                                    nvidia_smi("name,power.limit")))
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         by_path = {e: paths[e][kname] for e in paths}

@@ -1,0 +1,301 @@
+"""The device ingest's column steps: from sorted windows to the packed
+presence matrix, the union merge of batches and the singleton filter.
+
+The CUDA kernels are ``csrc/device_build.cu``; each wrapper launches them
+for a CUDA tensor and runs its plain PyTorch version for a CPU one. One
+call of a wrapper counts one launch in ``_build.launches``, whatever number
+of CUDA launches it makes (a flags launch, a ``torch.cumsum``, a write
+launch):
+
+- :func:`build_columns` (``build_columns``) replaces ``_build`` after its
+  sort (``grm_tpu/parallel/device_build.py:92-140``);
+- :func:`merge_ranks` and :func:`scatter_batch_columns` (both
+  ``merge_columns``) replace ``_merge_ranks`` (:158) and
+  ``_scatter_batch_columns`` (:207);
+- :func:`compact_columns` (``compact_columns``) replaces
+  ``_compact_singletons`` (:222) and ``_build``'s filter (:142); it counts
+  each column's genomes with :func:`~.popcount.popcount_colsum` and an
+  all-ones mask.
+
+Inputs come from :func:`~.kmer.sort_keys`: the sorted keys (n_pairs, n)
+int64, the permutation (n,) int64 (each sorted row's input position) and
+the sorted validity (n,) bool, or None where the keys mark it
+(``KEY_INVALID``). Columns at or past ``k_budget`` are dropped, as XLA's
+out-of-range scatters drop them; the callers raise. A count of k-mers is
+returned as a (1,) int32 tensor on the device, so that no call waits for
+the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .kmer import run_flags, unpack_keys
+from .popcount import popcount_colsum, popcount_colsum_plain
+
+__all__ = [
+    "TRASH",
+    "build_columns",
+    "build_columns_plain",
+    "compact_columns",
+    "compact_columns_plain",
+    "merge_ranks",
+    "merge_ranks_plain",
+    "scatter_batch_columns",
+    "scatter_batch_columns_plain",
+]
+
+TRASH = 2**31 - 1  # the merged column of an invalid row
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "grm_columns_flags": ([_P, _I, _L, _P, _P, _P], _I),
+    "grm_build_columns": ([_P, _I, _L, _P, _P, _P, _L, _I, _L, _I, _P, _P,
+                           _P], _I),
+    "grm_merge_dest": ([_P, _I, _L, _P, _P, _P, _L, _I, _P, _P, _P], _I),
+    "grm_scatter_columns": ([_P, _I, _L, _P, _P, _I, _L, _P], _I),
+    "grm_compact_flags": ([_P, _L, _P, _P, _P], _I),
+    "grm_compact_gather": ([_P, _P, _I, _L, _I, _P, _P, _P, _P], _I),
+}
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_sorted(keys, perm, valid):
+    if keys.dtype != torch.int64 or keys.dim() != 2 \
+            or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous (n_pairs, n) int64 tensor")
+    n = keys.shape[1]
+    if perm.dtype != torch.int64 or perm.shape != (n,):
+        raise ValueError("perm must be (n,) int64")
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != (n,)):
+        raise ValueError("valid must be (n,) bool or None")
+    if n >= 2**31:
+        raise ValueError("at most 2**31 - 1 rows a call")
+    for t in (perm, valid):
+        if t is not None and t.device != keys.device:
+            raise ValueError("keys, perm and valid must be on one device")
+
+
+def _union_plain(keys, first, col, nw, k_budget):
+    union = torch.zeros((k_budget, nw), dtype=torch.int32, device=keys.device)
+    sel = first & (col < k_budget)
+    union[col[sel]] = unpack_keys(keys[:, sel], nw).T
+    return union
+
+
+def _count(scan):
+    """The last entry of an inclusive scan as a (1,) int32 tensor."""
+    if scan.numel() == 0:
+        return torch.zeros(1, dtype=torch.int32, device=scan.device)
+    return scan[-1:].to(torch.int32).clone()
+
+
+def build_columns_plain(keys, perm, valid, nw, n_cols, k_budget):
+    """Plain PyTorch version of :func:`build_columns`."""
+    _check_sorted(keys, perm, valid)
+    n = keys.shape[1]
+    n_words = -(-(n // n_cols) // 32) if n else 0
+    valid, new = run_flags(keys, valid)
+    first = new & valid
+    scan = torch.cumsum(first.to(torch.int64), 0)
+    col = scan - 1
+    gid = perm // n_cols
+    same = torch.zeros(n, dtype=torch.bool, device=keys.device)
+    same[1:] = gid[1:] == gid[:-1]
+    keep = valid & ~(~new & same) & (col < k_budget)
+    flat = torch.zeros(n_words * k_budget, dtype=torch.int64,
+                       device=keys.device)
+    # The genomes of a column are distinct after the duplicate mask, so
+    # their bits are disjoint and a sum is their OR.
+    flat.index_add_(0, ((gid >> 5) * k_budget + col)[keep],
+                    (torch.ones_like(gid) << (31 - (gid & 31)))[keep])
+    matrix = flat.to(torch.int32).view(n_words, k_budget)
+    return matrix, _union_plain(keys, first, col, nw, k_budget), _count(scan)
+
+
+def build_columns(keys, perm, valid, nw, n_cols, k_budget):
+    """The packed matrix of one genome batch from its sorted windows.
+
+    Row ``i`` of the sort is window ``perm[i] % n_cols`` of genome
+    ``perm[i] // n_cols``. Returns (matrix (W, k_budget) int32 with genome
+    ``g`` at bit ``31 - g % 32`` of word row ``g // 32``, union words
+    (k_budget, nw) int32 of each column's k-mer, zero past the last, the
+    number of distinct k-mers (1,) int32).
+    """
+    _check_sorted(keys, perm, valid)
+    if keys.device.type != "cuda":
+        return build_columns_plain(keys, perm, valid, nw, n_cols, k_budget)
+    lib = _build.library("device_build", _SIGNATURES)
+    n_pairs, n = keys.shape
+    n_words = -(-(n // n_cols) // 32) if n else 0
+    dev = keys.device
+    matrix = torch.zeros((n_words, k_budget), dtype=torch.int32, device=dev)
+    union = torch.zeros((k_budget, nw), dtype=torch.int32, device=dev)
+    if n == 0:
+        return matrix, union, torch.zeros(1, dtype=torch.int32, device=dev)
+    vp = None if valid is None else valid.data_ptr()
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.grm_columns_flags(
+            keys.data_ptr(), n_pairs, n, vp, flags.data_ptr(),
+            _stream(keys)), "build_columns flags")
+        scan = torch.cumsum(flags, 0, dtype=torch.int32)
+        del flags
+        _build.check(lib.grm_build_columns(
+            keys.data_ptr(), n_pairs, n, vp, perm.data_ptr(),
+            scan.data_ptr(), n_cols, n_words, k_budget, nw,
+            matrix.data_ptr(), union.data_ptr(), _stream(keys)),
+            "build_columns")
+        _build.launches["build_columns"] += 1
+    return matrix, union, _count(scan)
+
+
+def merge_ranks_plain(keys, perm, valid, nw, k_budget):
+    """Plain PyTorch version of :func:`merge_ranks`."""
+    _check_sorted(keys, perm, valid)
+    valid, new = run_flags(keys, valid)
+    first = new & valid
+    scan = torch.cumsum(first.to(torch.int64), 0)
+    col = scan - 1
+    dest = torch.empty(keys.shape[1], dtype=torch.int32, device=keys.device)
+    dest[perm] = torch.where(valid, col, TRASH).to(torch.int32)
+    return dest, _union_plain(keys, first, col, nw, k_budget), _count(scan)
+
+
+def merge_ranks(keys, perm, valid, nw, k_budget):
+    """The merged columns of the batches' union rows from their merge
+    sort: (dest (n,) int32 in input order, the row's column in the merged
+    union or ``TRASH`` for an invalid row; merged union words (k_budget,
+    nw) int32; the merged k-mer count (1,) int32)."""
+    _check_sorted(keys, perm, valid)
+    if keys.device.type != "cuda":
+        return merge_ranks_plain(keys, perm, valid, nw, k_budget)
+    lib = _build.library("device_build", _SIGNATURES)
+    n_pairs, n = keys.shape
+    dev = keys.device
+    dest = torch.empty(n, dtype=torch.int32, device=dev)
+    union = torch.zeros((k_budget, nw), dtype=torch.int32, device=dev)
+    if n == 0:
+        return dest, union, torch.zeros(1, dtype=torch.int32, device=dev)
+    vp = None if valid is None else valid.data_ptr()
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.grm_columns_flags(
+            keys.data_ptr(), n_pairs, n, vp, flags.data_ptr(),
+            _stream(keys)), "merge_columns flags")
+        scan = torch.cumsum(flags, 0, dtype=torch.int32)
+        del flags
+        _build.check(lib.grm_merge_dest(
+            keys.data_ptr(), n_pairs, n, vp, perm.data_ptr(),
+            scan.data_ptr(), k_budget, nw, dest.data_ptr(),
+            union.data_ptr(), _stream(keys)), "merge_columns")
+        _build.launches["merge_columns"] += 1
+    return dest, union, _count(scan)
+
+
+def _check_scatter(final, batch, dest, w_off):
+    for t in (final, batch, dest):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("final, batch and dest must be contiguous int32")
+    if batch.dim() != 2 or dest.shape != (batch.shape[1],) \
+            or not 0 <= w_off <= final.shape[0] - batch.shape[0]:
+        raise ValueError("batch (wb, bucket), dest (bucket,) and word rows "
+                         "[w_off, w_off + wb) of final expected")
+    if batch.device != final.device or dest.device != final.device:
+        raise ValueError("final, batch and dest must be on one device")
+
+
+def scatter_batch_columns_plain(final, batch, dest, w_off):
+    """Plain PyTorch version of :func:`scatter_batch_columns`."""
+    _check_scatter(final, batch, dest, w_off)
+    ok = dest < min(final.shape[1], TRASH)
+    final[w_off:w_off + batch.shape[0], dest[ok].long()] = batch[:, ok]
+    return final
+
+
+def scatter_batch_columns(final, batch, dest, w_off):
+    """Place a batch's word rows at their merged columns, in place:
+    ``final[w_off + w, dest[j]] = batch[w, j]`` for every ``dest[j]`` below
+    ``final``'s width. The batches own disjoint word rows, so no OR."""
+    _check_scatter(final, batch, dest, w_off)
+    if final.device.type != "cuda":
+        return scatter_batch_columns_plain(final, batch, dest, w_off)
+    lib = _build.library("device_build", _SIGNATURES)
+    if batch.numel() == 0:
+        return final
+    with torch.cuda.device(final.device):
+        _build.check(lib.grm_scatter_columns(
+            batch.data_ptr(), batch.shape[0], batch.shape[1],
+            dest.data_ptr(), final.data_ptr(), w_off, final.shape[1],
+            _stream(final)), "merge_columns scatter")
+        _build.launches["merge_columns"] += 1
+    return final
+
+
+def _check_compact(matrix, union, n_kmers):
+    if matrix.dtype != torch.int32 or matrix.dim() != 2 \
+            or not matrix.is_contiguous():
+        raise ValueError("matrix must be a contiguous (W, K) int32 tensor")
+    if union.dtype != torch.int32 or union.dim() != 2 \
+            or union.shape[0] != matrix.shape[1] or not union.is_contiguous():
+        raise ValueError("union must be a contiguous (K, nw) int32 tensor")
+    if n_kmers.dtype != torch.int32 or n_kmers.shape != (1,):
+        raise ValueError("n_kmers must be a (1,) int32 tensor")
+    if union.device != matrix.device or n_kmers.device != matrix.device:
+        raise ValueError("matrix, union and n_kmers must be on one device")
+
+
+def _ones_mask(matrix):
+    return torch.full((1, matrix.shape[0]), -1, dtype=torch.int32,
+                      device=matrix.device)
+
+
+def compact_columns_plain(matrix, union, n_kmers):
+    """Plain PyTorch version of :func:`compact_columns`."""
+    _check_compact(matrix, union, n_kmers)
+    counts = popcount_colsum_plain(matrix, _ones_mask(matrix))[0]
+    k = matrix.shape[1]
+    keep = (torch.arange(k, device=matrix.device) < n_kmers) & (counts != 1)
+    m = int(keep.sum())
+    out = torch.zeros_like(matrix)
+    out[:, :m] = matrix[:, keep]
+    union_out = torch.zeros_like(union)
+    union_out[:m] = union[keep]
+    return out, union_out, torch.tensor([m], dtype=torch.int32,
+                                        device=matrix.device)
+
+
+def compact_columns(matrix, union, n_kmers):
+    """Drop the columns present in exactly one genome and the columns at
+    or past ``n_kmers`` (1,) int32, and move the rest left in order, matrix
+    (W, K) and union (K, nw) alike, with zero tails. Returns (matrix,
+    union, the number kept (1,) int32)."""
+    _check_compact(matrix, union, n_kmers)
+    if matrix.device.type != "cuda":
+        return compact_columns_plain(matrix, union, n_kmers)
+    lib = _build.library("device_build", _SIGNATURES)
+    w, k = matrix.shape
+    dev = matrix.device
+    out = torch.zeros_like(matrix)
+    union_out = torch.zeros_like(union)
+    if k == 0:
+        return out, union_out, torch.zeros(1, dtype=torch.int32, device=dev)
+    counts = popcount_colsum(matrix, _ones_mask(matrix))
+    flags = torch.empty(k, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.grm_compact_flags(
+            counts.data_ptr(), k, n_kmers.data_ptr(), flags.data_ptr(),
+            _stream(matrix)), "compact_columns flags")
+        scan = torch.cumsum(flags, 0, dtype=torch.int32)
+        _build.check(lib.grm_compact_gather(
+            matrix.data_ptr(), union.data_ptr(), w, k, union.shape[1],
+            scan.data_ptr(), out.data_ptr(), union_out.data_ptr(),
+            _stream(matrix)), "compact_columns")
+        _build.launches["compact_columns"] += 1
+    return out, union_out, _count(scan)

@@ -197,19 +197,38 @@ class BitMatrix:
     ``sum_rows`` semantics (rules.py:201-267).
 
     Wraps a (W, K) matrix for ``n_rows`` genomes; ``data`` is the int32
-    tensor on ``device`` (default ``"cuda"``).
+    tensor on ``device`` (default ``"cuda"``). ``packed_u32`` is a uint32
+    numpy array, uploaded, or a (W, K) int32 tensor, wrapped as it lies
+    (``device`` defaults to its own; another raises). ``n_columns`` below K
+    marks the columns past it as padding, all zero.
     """
 
-    def __init__(self, packed_u32, n_rows, device=None):
-        dev = resolve_device(device)
-        packed_u32 = np.asarray(packed_u32)
-        if packed_u32.dtype != np.uint32 or packed_u32.ndim != 2:
-            raise ValueError("BitMatrix expects a 2-D uint32-packed matrix.")
+    def __init__(self, packed_u32, n_rows, device=None, n_columns=None):
+        if isinstance(packed_u32, torch.Tensor):
+            if packed_u32.dtype != torch.int32 or packed_u32.dim() != 2:
+                raise ValueError("BitMatrix expects a 2-D int32 tensor of "
+                                 "packed words.")
+            dev = packed_u32.device if device is None \
+                else resolve_device(device)
+            if dev != packed_u32.device:
+                raise ValueError("the packed tensor lies on %s, not %s"
+                                 % (packed_u32.device, dev))
+            data = packed_u32.contiguous()
+        else:
+            dev = resolve_device(device)
+            packed_u32 = np.asarray(packed_u32)
+            if packed_u32.dtype != np.uint32 or packed_u32.ndim != 2:
+                raise ValueError("BitMatrix expects a 2-D uint32-packed "
+                                 "matrix.")
+            data = masks_to_tensor(packed_u32, dev)
         self.n_rows = int(n_rows)
-        self.n_words, self.n_columns = packed_u32.shape
+        self.n_words, width = data.shape
+        self.n_columns = width if n_columns is None else int(n_columns)
+        if not 0 <= self.n_columns <= width:
+            raise ValueError("n_columns must be in [0, %d]" % width)
         if self.n_words * 32 < self.n_rows:
             raise ValueError("Packed matrix has too few word-rows for n_rows.")
-        self.data = masks_to_tensor(packed_u32, dev)
+        self.data = data
         self.device = dev
 
     @classmethod
@@ -242,7 +261,7 @@ class BitMatrix:
         (C, K) int64 numpy."""
         masks = masks_to_tensor(
             np.stack([self.row_mask(r) for r in rows_list]), self.device)
-        counts = popcount_colsum(self.data, masks)
+        counts = popcount_colsum(self.data, masks)[:, :self.n_columns]
         return counts.cpu().numpy().astype(np.int64)
 
     def sum_rows(self, rows):

@@ -1,0 +1,206 @@
+"""In-memory end-to-end pipeline: contigs -> matrix on the card -> split ->
+SCM model, in one process and with no artifact in between.
+
+Port of the device half of ``grm_tpu/pipeline.py``:
+:meth:`InMemoryDataset.from_contigs_device` builds the packed presence
+matrix on the card (:mod:`grm_tpu_torch.parallel.device_build`) and
+returns a :class:`DeviceDataset`, whose matrix never leaves the card: only
+the model's few rule columns and k-mers come back. :func:`train_scm` fits
+SCM on it through the argmax engine's full-train fit
+(:func:`grm_tpu_torch.parallel.mesh.scm_fit_batch_device`, one
+``popcount_colsum`` launch a greedy step).
+
+Host ingest (``InMemoryDataset.from_contigs`` and the ``KmerMatrix`` it
+wraps) is not ported yet (ROADMAP.md, Queue 1 item 12), nor are device
+meshes (item 11).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from math import ceil
+
+import numpy as np
+import torch
+
+from .learning.metrics import get_binary_metrics
+from .learning.models import ConjunctionModel, DisjunctionModel, KmerRule
+from .ops.kmer import decode_kmers, encode_contigs
+from .ops.popcount import masks_to_tensor
+from .parallel.device_build import (build_matrix_device,
+                                    build_matrix_device_batched)
+from .parallel.mesh import scm_fit_batch_device
+from .parallel.scm_device import build_packed_mask
+from .utils import fasta_to_sequences, unpack_binary_bytes_from_ints
+
+__all__ = ["InMemoryDataset", "DeviceDataset", "train_scm", "PipelineResult"]
+
+HOST_INGEST_MESSAGE = (
+    "host ingest (InMemoryDataset.from_contigs and its KmerMatrix) is not "
+    "ported yet (ROADMAP.md, Queue 1 item 12); use "
+    "InMemoryDataset.from_contigs_device")
+MESH_MESSAGE = (
+    "train_scm over a device mesh is not ported yet (ROADMAP.md, Queue 1 "
+    "item 11: multi-device paths); pass mesh=None")
+
+
+class InMemoryDataset:
+    """A dataset built in memory from contigs. Only the device ingest,
+    :meth:`from_contigs_device`, is ported."""
+
+    def __init__(self, km, labels_by_genome_id, sharding=None):
+        raise NotImplementedError(HOST_INGEST_MESSAGE)
+
+    @classmethod
+    def from_contigs(cls, genome_specs, labels_by_genome_id, k,
+                     filter_singleton=False, engine="auto", sharding=None):
+        raise NotImplementedError(HOST_INGEST_MESSAGE)
+
+    @classmethod
+    def from_contigs_device(cls, genome_specs, labels_by_genome_id, k,
+                            filter_singleton=False, k_budget=None,
+                            genome_batch=None, batch_budget=None,
+                            device=None):
+        """Ingest on the card: extraction, union and packing stay there.
+
+        ``genome_specs``: (genome id, FASTA path) pairs. Returns a
+        :class:`DeviceDataset`. ``genome_batch`` (a multiple of 32) switches
+        to the batched builder: a sort per batch and one union merge.
+        """
+        codes_list = [encode_contigs(fasta_to_sequences(path))
+                      for _, path in genome_specs]
+        ids = [gid for gid, _ in genome_specs]
+        if genome_batch:
+            dm = build_matrix_device_batched(
+                codes_list, k, genome_ids=ids, k_budget=k_budget,
+                genome_batch=genome_batch, batch_budget=batch_budget,
+                filter_singleton=filter_singleton, device=device)
+        else:
+            dm = build_matrix_device(
+                codes_list, k, genome_ids=ids, k_budget=k_budget,
+                filter_singleton=filter_singleton, device=device)
+        return DeviceDataset(dm, labels_by_genome_id)
+
+
+class DeviceDataset:
+    """In-memory dataset over a matrix built on the card. The packed
+    matrix lives only there; :meth:`get_matrix_columns` unpacks the few
+    rule columns the model needs."""
+
+    def __init__(self, device_matrix, labels_by_genome_id):
+        self.dm = device_matrix
+        self.genome_count = len(device_matrix.genome_ids)
+        self.kmer_count = device_matrix.n_kmers
+        self.labels = np.array(
+            [int(labels_by_genome_id[g]) for g in device_matrix.genome_ids],
+            dtype=np.uint8)
+        self._bm = device_matrix.bit_matrix()
+        self.km = _DeviceKmerView(device_matrix)
+
+    def bit_matrix(self, sharding=None):
+        return self._bm
+
+    def get_matrix_columns(self, columns):
+        """(genomes, len(columns)) uint8: presence for a column below
+        ``kmer_count``, absence for ``kmer_count + c``. Gathers the columns
+        on the card."""
+        columns = np.asarray(columns, dtype=np.int64)
+        base = np.where(columns >= self.kmer_count, columns - self.kmer_count,
+                        columns)
+        data = self._bm.data
+        packed = data.index_select(
+            1, torch.as_tensor(base, device=data.device)).cpu().numpy()
+        dense = unpack_binary_bytes_from_ints(
+            packed.view(np.uint32))[:self.genome_count]
+        inv = columns >= self.kmer_count
+        dense[:, inv] = 1 - dense[:, inv]
+        return dense
+
+
+class _DeviceKmerView:
+    """Minimal KmerMatrix-like view for rule decoding."""
+
+    def __init__(self, device_matrix):
+        self._dm = device_matrix
+        self.k = device_matrix.k
+        self._kmers = None
+
+    @property
+    def kmers(self):
+        if self._kmers is None:
+            self._kmers = self._dm.union_kmers_host()
+        return self._kmers
+
+
+@dataclass
+class PipelineResult:
+    model: object
+    rules: list
+    train_metrics: dict
+    test_metrics: dict
+    train_idx: np.ndarray
+    test_idx: np.ndarray
+
+
+def train_scm(dataset, model_type="conjunction", p=1.0, max_rules=10,
+              train_prop=0.75, random_seed=0, mesh=None):
+    """Greedy SCM on the in-memory matrix with the argmax engine's fit.
+
+    The split mirrors the reference (RandomState shuffle, ceil of the
+    proportion). Returns the fitted model and train/test metrics.
+    """
+    if mesh is not None:
+        raise NotImplementedError(MESH_MESSAGE)
+    rngen = np.random.RandomState(random_seed)
+    n = dataset.genome_count
+    idx = np.arange(n)
+    rngen.shuffle(idx)
+    n_train = int(ceil(train_prop * n))
+    train_idx, test_idx = np.sort(idx[:n_train]), np.sort(idx[n_train:])
+
+    labels = dataset.labels
+    pos = train_idx[labels[train_idx] == 1]
+    neg = train_idx[labels[train_idx] == 0]
+    if model_type == "disjunction":
+        pos, neg = neg, pos
+
+    bm = dataset.bit_matrix()
+    rules_arr, _, _ = scm_fit_batch_device(
+        bm.data,
+        masks_to_tensor(build_packed_mask(pos, n, bm.n_words)[None],
+                        bm.device),
+        masks_to_tensor(build_packed_mask(neg, n, bm.n_words)[None],
+                        bm.device),
+        torch.tensor([p], dtype=torch.float32, device=bm.device),
+        bm.n_columns, max_rules)
+    rule_idx = [int(r) for r in rules_arr[0] if r >= 0]
+
+    model = ConjunctionModel() if model_type == "conjunction" \
+        else DisjunctionModel()
+    rules = []
+    for ridx in rule_idx:
+        kmer_i = ridx % dataset.kmer_count
+        rule_type = "absence" if ridx >= dataset.kmer_count else "presence"
+        seq = decode_kmers(dataset.km.kmers[kmer_i:kmer_i + 1],
+                           dataset.km.k)[0]
+        rule = KmerRule(kmer_i, seq, rule_type)
+        if model_type == "disjunction":
+            rule = rule.inverse()
+        model.add(rule)
+        rules.append(rule)
+
+    X = dataset.get_matrix_columns([r.kmer_index for r in model.rules])
+    readdressed = ConjunctionModel() if model_type == "conjunction" \
+        else DisjunctionModel()
+    for i, r in enumerate(model.rules):
+        readdressed.add(KmerRule(i, r.kmer_sequence, r.type))
+    train_pred = readdressed.predict(X[train_idx])
+    test_pred = readdressed.predict(X[test_idx])
+    return PipelineResult(
+        model=model,
+        rules=rules,
+        train_metrics=get_binary_metrics(train_pred, labels[train_idx]),
+        test_metrics=get_binary_metrics(test_pred, labels[test_idx]),
+        train_idx=train_idx,
+        test_idx=test_idx,
+    )

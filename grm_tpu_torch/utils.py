@@ -8,6 +8,7 @@ needs. Contracts mirror the reference (``bin/kover/core/kover/utils.py``):
   (utils.py:159-187);
 - minimum uint dtype selection (utils.py:117-130);
 - per-word row masks (learning/common/rules.py:210-222);
+- FASTA contig reading (utils.py:57-75);
 - k-mer blacklist parsing (utils.py:189-213).
 """
 
@@ -23,6 +24,7 @@ __all__ = [
     "unpack_binary_bytes_from_ints",
     "parse_kmer_blacklist",
     "build_row_mask",
+    "fasta_to_sequences",
 ]
 
 
@@ -103,8 +105,9 @@ def build_row_mask(example_idx, n_examples, mask_n_bits):
     return masks.astype(dtype)
 
 
-def _fasta_to_sequences(path):
-    """Upper-cased contig sequences of a (optionally gzipped) FASTA file."""
+def fasta_to_sequences(path):
+    """Upper-cased contig sequences of a (optionally gzipped) FASTA file:
+    contigs are concatenated across line breaks and headers discarded."""
     opener = _gzip.open if str(path).endswith(".gz") else open
     contigs = []
     buffer = None
@@ -128,7 +131,7 @@ def parse_kmer_blacklist(blacklist_path, expected_kmer_len):
     k-mer must be ACGT-only and of the dataset's k-mer length."""
     fasta_extensions = (".fasta", ".fa", ".fas", ".fna")
     if any(str(blacklist_path).endswith(ext) for ext in fasta_extensions):
-        data = _fasta_to_sequences(blacklist_path)
+        data = fasta_to_sequences(blacklist_path)
     else:
         with open(blacklist_path, "r") as f:
             data = [l.rstrip("\n") for l in f]

@@ -495,3 +495,24 @@ def test_pass_bitmap_kernel(cuda, case, criterion):
     for g, x in zip(got, want):
         _same(g, x)
     assert bool((want[0] != 0).any())
+
+
+def _record(name, got, want, what):
+    assert smoke.exact_err(got, want) == 0.0, "%s at %s" % (name, what)
+
+
+@pytest.mark.parametrize("n_genomes", smoke.INGEST_CASE_GENOMES)
+@pytest.mark.parametrize("k", smoke.INGEST_CASE_KS)
+def test_ingest_kernels(cuda, k, n_genomes):
+    """kmer_canon, build_columns, merge_columns and compact_columns at
+    phase 3's (k, G) cases: runs of 4s, a contig shorter than k, a length
+    that is a multiple of no tile."""
+    smoke.ingest_case(cuda, np.random.RandomState(100 * k + n_genomes), k,
+                      n_genomes, _record)
+
+
+def test_ingest_builders(cuda):
+    """Both builders on the card against the plain versions on the CPU,
+    with and without the singleton filter; the all-T k-mer; a full
+    bucket."""
+    smoke.ingest_builder_cases(cuda, np.random.RandomState(5), _record)

@@ -29,7 +29,11 @@ assert not torch.cuda.is_available()
 from grm_tpu_torch.dataset import GrmDataset, from_numpy_artifact
 from grm_tpu_torch.device import resolve_device
 from grm_tpu_torch.learning.experiments import learn_CART, learn_SCM
+from grm_tpu_torch.ops.kmer import sorted_kmers_np
 from grm_tpu_torch.ops.popcount import BitMatrix
+from grm_tpu_torch.parallel.device_build import (
+    build_matrix_device, build_matrix_device_batched)
+from grm_tpu_torch.pipeline import InMemoryDataset
 
 calls = [
     lambda: resolve_device(),
@@ -41,6 +45,10 @@ calls = [
                        engine="device-argmax"),
     lambda: learn_CART("unused.h5", "sp", "gini", 3, 2, {0: 1.0, 1: 1.0},
                        engine="device"),
+    lambda: sorted_kmers_np(np.zeros(40, np.int8), 9),
+    lambda: build_matrix_device([np.zeros(40, np.int8)], 9),
+    lambda: build_matrix_device_batched([np.zeros(40, np.int8)], 9),
+    lambda: InMemoryDataset.from_contigs_device([], {}, 9),
 ]
 for call in calls:
     try:
@@ -53,7 +61,8 @@ assert resolve_device("cpu").type == "cpu"
 for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
                "ops.cart_exact", "parallel.cart_device",
                "parallel.cart_exact", "parallel.cart_forest",
-               "learning.experiments.cart_experiment"):
+               "learning.experiments.cart_experiment", "ops.kmer",
+               "ops.device_build", "parallel.device_build", "pipeline"):
     assert "grm_tpu_torch." + module in names, module
 print("imported", len(names))
 '''
