@@ -46,12 +46,14 @@ Phases (any failure exits non-zero and prints no result):
    kmer_canon, build_columns (a budget the union fits, one it overflows),
    merge_columns (the first 32 rows and the rest merged as two batches,
    and their scatter) and compact_columns
-   at k = 9, 15, 16, 17, 31, 32, 33 and 64 and G = 1, 31, 32, 33 and 64
-   genome rows of 4173 codes (a multiple of no tile) with runs of 4s and a
-   contig shorter than k; then both builders on the card against the same
-   builders through the plain versions on the CPU, with and without the
-   singleton filter, at k = 16, 31 and 33, at the all-T k-mer of k = 16
-   and 32, and with a batch bucket that is exactly full.
+   at k = 1, 9, 15, 16, 17, 30, 31, 32, 33 and 64 and G = 1, 31, 32, 33
+   and 64 genome rows of 4173 codes (a multiple of no tile) with runs of
+   4s and a contig shorter than k, kmer_canon also at rows of 4144 codes
+   (16-byte aligned, ending mid-run in a second tile); then both builders
+   on the card against the same builders through the plain versions on
+   the CPU, with and without the singleton filter, at k = 16, 31 and 33,
+   at the all-T k-mer of k = 16 and 32, and with a batch bucket that is
+   exactly full.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
@@ -163,9 +165,13 @@ INGEST_K, INGEST_BATCH = 31, 32
 INGEST_BUDGET = 1 << 24  # k_budget and batch_budget, as bench.py:181 sets them
 SMALL_INGEST = (40, 200_000)  # phase 4: genomes x bases, from FASTA files
 # Phase 3's ingest kernel cases (tests/test_torch_cuda.py takes them too).
-INGEST_CASE_KS = (9, 15, 16, 17, 31, 32, 33, 64)
+INGEST_CASE_KS = (1, 9, 15, 16, 17, 30, 31, 32, 33, 64)
 INGEST_CASE_GENOMES = (1, 31, 32, 33, 64)
 INGEST_CASE_LENGTH = 2 * 2048 + 77  # a multiple of no tile or bucket
+# kmer_canon also at a row length that is 16-byte aligned (its staging's
+# vector loads) and ends mid-run in the second tile of the sort key's
+# layout (tiles of 4096 windows, runs of 32: csrc/kmer.cu).
+INGEST_CANON_LENGTH = 4096 + 48
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, throughput, cc 9.0
 
@@ -1008,11 +1014,12 @@ def full_bucket_genomes(rng, k, n_genomes=32, n_kmers=1024):
 
 
 def ingest_case(device, rng, k, n_genomes, record):
-    """One of phase 3's ingest kernel cases (k, G): kmer_canon,
-    build_columns (with a budget the union fits and one it overflows),
-    compact_columns, merge_columns (rows [0, 32) and [32, G) merged, as the
-    batched builder merges batches, and their scatter) on the card against
-    their plain versions on the same inputs. ``record(name, got, want,
+    """One of phase 3's ingest kernel cases (k, G): kmer_canon (at
+    INGEST_CASE_LENGTH and INGEST_CANON_LENGTH), build_columns (with a
+    budget the union fits and one it overflows), compact_columns,
+    merge_columns (rows [0, 32) and [32, G) merged, as the batched builder
+    merges batches, and their scatter) on the card against their plain
+    versions on the same inputs. ``record(name, got, want,
     what)`` compares."""
     import torch
 
@@ -1025,11 +1032,15 @@ def ingest_case(device, rng, k, n_genomes, record):
     what = "k=%d G=%d L=%d" % (k, g, n)
     codes = torch.from_numpy(ingest_codes(rng, g, n, k)).to(device)
     single = k <= km.MAX_SINGLE_KEY_K
-    record("kmer_canon", km.kmer_canon(codes, k),
-           km.kmer_canon_plain(codes, k), what)
-    if single:
-        record("kmer_canon", km.kmer_canon(codes, k, key=True),
-               km.kmer_canon_plain(codes, k, key=True), what + " key")
+
+    def canon(codes, what):
+        record("kmer_canon", km.kmer_canon(codes, k),
+               km.kmer_canon_plain(codes, k), what)
+        if single:
+            record("kmer_canon", km.kmer_canon(codes, k, key=True),
+                   km.kmer_canon_plain(codes, k, key=True), what + " key")
+
+    canon(codes, what)
     keys, valid = km.window_keys(codes, k)
     keys, perm, valid = km.sort_keys(keys, valid)
     for budget in (g * n, 700):
@@ -1063,6 +1074,9 @@ def ingest_case(device, rng, k, n_genomes, record):
             db.scatter_batch_columns_plain(plain, p[0], dest, lo // 32)
         record("merge_columns", final, plain,
                "%s scatter k_budget=%d" % (what, budget))
+    canon(torch.from_numpy(ingest_codes(rng, g, INGEST_CANON_LENGTH,
+                                        k)).to(device),
+          "k=%d G=%d L=%d" % (k, g, INGEST_CANON_LENGTH))
 
 
 def ingest_builder_cases(device, rng, record):
