@@ -49,7 +49,10 @@ Phases (any failure exits non-zero and prints no result):
    at k = 1, 9, 15, 16, 17, 30, 31, 32, 33 and 64 and G = 1, 31, 32, 33
    and 64 genome rows of 4173 codes (a multiple of no tile) with runs of
    4s and a contig shorter than k, kmer_canon also at rows of 4144 codes
-   (16-byte aligned, ending mid-run in a second tile); then both builders
+   (16-byte aligned, ending mid-run in a second tile); build_columns also
+   at k = 31 and 33 on 64 genomes of 65,613 codes (over 1,000 of its
+   tiles), each with a run of 1,000 As, so that the all-A k-mer's first
+   matrix word covers several whole tiles; then both builders
    on the card against the same builders through the plain versions on
    the CPU, with and without the singleton filter, at k = 16, 31 and 33,
    at the all-T k-mer of k = 16 and 32, and with a batch bucket that is
@@ -120,7 +123,8 @@ Phases (any failure exits non-zero and prints no result):
    pass-bitmap fill also on its own, on a line of its own. The four ingest
    kernels at phase 5's shapes (one 32-genome batch; every batch's union;
    the merged matrix), each a call of its wrapper by CUDA events with the
-   hand kernels' own device time beside it, against the bytes bound, and
+   hand kernels' own device time beside it, against the bytes bound
+   (build_columns also with its ``ptxas`` registers and spills), and
    ``torch.sort`` at one batch on a line of its own. Every timing
    line carries the card's ``nvidia-smi`` name and power limit.
 
@@ -172,6 +176,10 @@ INGEST_CASE_LENGTH = 2 * 2048 + 77  # a multiple of no tile or bucket
 # vector loads) and ends mid-run in the second tile of the sort key's
 # layout (tiles of 4096 windows, runs of 32: csrc/kmer.cu).
 INGEST_CANON_LENGTH = 4096 + 48
+# build_columns over many of its tiles (4096 rows at k <= 31, 2048 at
+# k <= 64: csrc/device_build.cu), with one k-mer's word over whole tiles.
+HOT_CASE_KS, HOT_CASE_GENOMES = (31, 33), 64
+HOT_CASE_LENGTH, HOT_RUN = 16 * 4096 + 77, 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, throughput, cc 9.0
 
@@ -234,7 +242,7 @@ KERNEL_FUNCTIONS = {
     "cart_exact_select": ("cart_exact_select_kernel",
                           "cart_exact_write_kernel"),
     "kmer_canon": "kmer_canon_kernel",
-    "build_columns": ("columns_flags_kernel", "build_columns_kernel"),
+    "build_columns": "build_columns_tile_kernel",
     "merge_columns": ("columns_flags_kernel", "merge_dest_kernel",
                       "scatter_columns_kernel"),
     "compact_columns": ("compact_flags_kernel", "compact_gather_kernel"),
@@ -1079,6 +1087,34 @@ def ingest_case(device, rng, k, n_genomes, record):
           "k=%d G=%d L=%d" % (k, g, INGEST_CANON_LENGTH))
 
 
+def hot_kmer_case(device, rng, k, record):
+    """Phase 3's many-tile build_columns case: HOT_CASE_GENOMES rows of
+    HOT_CASE_LENGTH codes (ingest_codes), each with a run of HOT_RUN As at
+    random, so that the all-A k-mer, the first column, has 32 x (HOT_RUN -
+    k + 1) rows in its first matrix word: several whole tiles, whose
+    chunks all take the atomic path. Against the plain version with a
+    budget the union fits and one it overflows."""
+    import torch
+
+    from grm_tpu_torch.ops import device_build as db
+    from grm_tpu_torch.ops import kmer as km
+
+    g, n = HOT_CASE_GENOMES, HOT_CASE_LENGTH
+    codes = ingest_codes(rng, g, n, k)
+    for row in codes:
+        at = rng.randint(0, n - HOT_RUN)
+        row[at:at + HOT_RUN] = 0
+    keys, valid = km.window_keys(torch.from_numpy(codes).to(device), k)
+    keys, perm, valid = km.sort_keys(keys, valid)
+    nw = km.n_words_for_k(k)
+    for budget in (g * n, 700):
+        record("build_columns",
+               db.build_columns(keys, perm, valid, nw, n, budget),
+               db.build_columns_plain(keys, perm, valid, nw, n, budget),
+               "k=%d G=%d L=%d, a run of %d As, k_budget=%d"
+               % (k, g, n, HOT_RUN, budget))
+
+
 def ingest_builder_cases(device, rng, record):
     """Phase 3's builder cases: build_matrix_device and
     build_matrix_device_batched on the card against the same builders run
@@ -1129,8 +1165,9 @@ def ingest_builder_cases(device, rng, record):
 def check_ingest_kernels(device):
     """Phase 3, ingest: kmer_canon, build_columns, merge_columns and
     compact_columns equal their plain versions exactly on the card at every
-    (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case), then the
-    builders (ingest_builder_cases). Returns the largest error per kernel
+    (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case),
+    build_columns over many tiles (hot_kmer_case), then the builders
+    (ingest_builder_cases). Returns the largest error per kernel
     (all 0.0)."""
     rng = np.random.RandomState(5)
     worst = {}
@@ -1145,6 +1182,8 @@ def check_ingest_kernels(device):
     for k in INGEST_CASE_KS:
         for g in INGEST_CASE_GENOMES:
             ingest_case(device, rng, k, g, record)
+    for k in HOT_CASE_KS:
+        hot_kmer_case(device, rng, k, record)
     ingest_builder_cases(device, rng, record)
     return worst
 
@@ -1784,7 +1823,7 @@ def time_ingest_kernels(codes_list, device, paths, card):
 
     rows = {}
 
-    def row(name, kernel, plain, nbytes, reps, shape):
+    def row(name, kernel, plain, nbytes, reps, shape, **more):
         err = exact_err(kernel(), plain())
         if err != 0.0:
             raise AssertionError("%s differs from its plain version at the "
@@ -1798,7 +1837,7 @@ def time_ingest_kernels(codes_list, device, paths, card):
         log(json.dumps({"kernel": name, "shape": shape, **rows[name],
                         "kernel_ms": kernel_ms, "timed_by": timed_by,
                         "launches": {e: paths[e][name] for e in paths},
-                        "card": card}))
+                        **more, "card": card}))
 
     batch = codes_list[:INGEST_BATCH]
     n_cols = -(-max(len(c) for c in batch) // 4096) * 4096
@@ -1827,7 +1866,8 @@ def time_ingest_kernels(codes_list, device, paths, card):
         lambda: db.build_columns(keys, perm, None, nw, n_cols, bucket),
         lambda: db.build_columns_plain(keys, perm, None, nw, n_cols, bucket),
         16 * n + 4 * bucket * (-(-len(batch) // 32) + nw) + 4, 5,
-        "%d sorted rows, k_budget %d" % (n, bucket))
+        "%d sorted rows, k_budget %d" % (n, bucket),
+        ptxas=kernel_ptxas("device_build", KERNEL_FUNCTIONS["build_columns"]))
     del keys, perm
 
     batches = []
@@ -1921,6 +1961,18 @@ def ptxas_summary(text):
         if m:
             out.append((function, m.group(1), spills))
     return out
+
+
+def kernel_ptxas(source, function):
+    """[{function, registers, spills}] of the kernel functions named
+    ``function`` (each instance of a template) in the last build of
+    ``source``; empty if this process did not build it."""
+    from grm_tpu_torch.ops import _build
+
+    return [{"function": f, "registers": int(regs), "spills": spills}
+            for f, regs, spills in ptxas_summary(
+                _build.BUILD_LOG.get(source, ""))
+            if f.split("<")[0] == function]
 
 
 def nvidia_smi(fields):

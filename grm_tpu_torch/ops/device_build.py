@@ -8,7 +8,8 @@ of CUDA launches it makes (a flags launch, a ``torch.cumsum``, a write
 launch):
 
 - :func:`build_columns` (``build_columns``) replaces ``_build`` after its
-  sort (``grm_tpu/parallel/device_build.py:92-140``);
+  sort (``grm_tpu/parallel/device_build.py:92-140``), in one launch: its
+  scan is a look-back across tiles inside the kernel;
 - :func:`merge_ranks` and :func:`scatter_batch_columns` (both
   ``merge_columns``) replace ``_merge_ranks`` (:158) and
   ``_scatter_batch_columns`` (:207);
@@ -52,8 +53,9 @@ TRASH = 2**31 - 1  # the merged column of an invalid row
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "grm_columns_flags": ([_P, _I, _L, _P, _P, _P], _I),
-    "grm_build_columns": ([_P, _I, _L, _P, _P, _P, _L, _I, _L, _I, _P, _P,
-                           _P], _I),
+    "grm_build_columns_tiles": ([_I, _L], _L),
+    "grm_build_columns": ([_P, _I, _L, _P, _P, ctypes.c_uint, _I, _I, _L, _I,
+                           _P, _P, _P, _P, _P], _I),
     "grm_merge_dest": ([_P, _I, _L, _P, _P, _P, _L, _I, _P, _P, _P], _I),
     "grm_scatter_columns": ([_P, _I, _L, _P, _P, _I, _L, _P], _I),
     "grm_compact_flags": ([_P, _L, _P, _P, _P], _I),
@@ -80,6 +82,18 @@ def _check_sorted(keys, perm, valid):
     for t in (perm, valid):
         if t is not None and t.device != keys.device:
             raise ValueError("keys, perm and valid must be on one device")
+
+
+def _divisor_magic(d):
+    """(magic, shift) with ``p // d == (p * magic) >> shift`` for every
+    ``0 <= p < 2**31`` and ``d >= 1``, ``magic < 2**32``: with ``l =
+    ceil(log2 d)`` and ``shift = 31 + l``, ``magic = ceil(2**shift / d)``
+    exceeds ``2**shift / d`` by less than ``2**l / d``, so ``p * magic /
+    2**shift`` exceeds ``p / d`` by less than ``1 / d``."""
+    if d >= 2**31:
+        return 0, 0  # every p is below d
+    shift = 31 + (d - 1).bit_length()
+    return -(-(1 << shift) // d), shift
 
 
 def _union_plain(keys, first, col, nw, k_budget):
@@ -127,6 +141,10 @@ def build_columns(keys, perm, valid, nw, n_cols, k_budget):
     ``g`` at bit ``31 - g % 32`` of word row ``g // 32``, union words
     (k_budget, nw) int32 of each column's k-mer, zero past the last, the
     number of distinct k-mers (1,) int32).
+
+    The rows come from :func:`~.kmer.sort_keys`: the valid rows first, the
+    rows of one k-mer in input order. The kernel relies on that order (the
+    rows of one matrix word are consecutive); the plain version does not.
     """
     _check_sorted(keys, perm, valid)
     if keys.device.type != "cuda":
@@ -140,20 +158,19 @@ def build_columns(keys, perm, valid, nw, n_cols, k_budget):
     if n == 0:
         return matrix, union, torch.zeros(1, dtype=torch.int32, device=dev)
     vp = None if valid is None else valid.data_ptr()
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    magic, shift = _divisor_magic(n_cols)
+    # The tile counter, then one look-back status a tile.
+    scratch = torch.zeros(1 + lib.grm_build_columns_tiles(n_pairs, n),
+                          dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _build.check(lib.grm_columns_flags(
-            keys.data_ptr(), n_pairs, n, vp, flags.data_ptr(),
-            _stream(keys)), "build_columns flags")
-        scan = torch.cumsum(flags, 0, dtype=torch.int32)
-        del flags
         _build.check(lib.grm_build_columns(
-            keys.data_ptr(), n_pairs, n, vp, perm.data_ptr(),
-            scan.data_ptr(), n_cols, n_words, k_budget, nw,
-            matrix.data_ptr(), union.data_ptr(), _stream(keys)),
+            keys.data_ptr(), n_pairs, n, vp, perm.data_ptr(), magic, shift,
+            n_words, k_budget, nw, matrix.data_ptr(), union.data_ptr(),
+            scratch.data_ptr(), count.data_ptr(), _stream(keys)),
             "build_columns")
         _build.launches["build_columns"] += 1
-    return matrix, union, _count(scan)
+    return matrix, union, count
 
 
 def merge_ranks_plain(keys, perm, valid, nw, k_budget):

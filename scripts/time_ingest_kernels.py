@@ -5,9 +5,10 @@ phase 6's shapes: the first batch of ``ingest-device`` (32 of the 342
 genomes of 4.4 Mbp that ``chip_smoke.ingest_genomes`` makes from seed 0,
 padded with 4s to a multiple of 4096 codes as the batched builder pads
 them: 140.9M windows, k = 31), then that batch's windows sorted and built
-into columns with a budget of 2^24. Each kernel is held against its plain
+into columns with a budget of 2^24 (``build_columns``, one launch of
+``build_columns_tile_kernel``). Each kernel is held against its plain
 version first (exact), and the build's ``ptxas`` registers and spills of
-the ``kmer`` library are printed.
+the ``kmer`` and ``device_build`` libraries are printed.
 
     python3 scripts/time_ingest_kernels.py [--repo DIR]
 
@@ -48,11 +49,12 @@ def main(argv=None):
     from grm_tpu_torch.ops import kmer as km
 
     _build.build_all()
-    for function, regs, spills in cs.ptxas_summary(
-            _build.BUILD_LOG.get("kmer", "")):
-        print(json.dumps({"repo": repo, "ptxas": function,
-                          "registers": int(regs), "spills": spills}),
-              flush=True)
+    for source in ("kmer", "device_build"):
+        for function, regs, spills in cs.ptxas_summary(
+                _build.BUILD_LOG.get(source, "")):
+            print(json.dumps({"repo": repo, "source": source,
+                              "ptxas": function, "registers": int(regs),
+                              "spills": spills}), flush=True)
     device = torch.device("cuda")
     card = cs.nvidia_smi("name,power.limit")
     k = cs.INGEST_K

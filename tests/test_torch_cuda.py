@@ -516,3 +516,10 @@ def test_ingest_builders(cuda):
     with and without the singleton filter; the all-T k-mer; a full
     bucket."""
     smoke.ingest_builder_cases(cuda, np.random.RandomState(5), _record)
+
+
+@pytest.mark.parametrize("k", smoke.HOT_CASE_KS)
+def test_ingest_build_columns_over_many_tiles(cuda, k):
+    """build_columns over more than 1,000 of its tiles, with one k-mer's
+    first matrix word covering several whole tiles."""
+    smoke.hot_kmer_case(cuda, np.random.RandomState(k), k, _record)
