@@ -45,14 +45,17 @@ Phases (any failure exits non-zero and prints no result):
    The device ingest's kernels, exact equality of every output:
    kmer_canon, build_columns (a budget the union fits, one it overflows),
    merge_columns (the first 32 rows and the rest merged as two batches,
-   and their scatter) and compact_columns
+   straight to the final matrix) and compact_columns
    at k = 1, 9, 15, 16, 17, 30, 31, 32, 33 and 64 and G = 1, 31, 32, 33
    and 64 genome rows of 4173 codes (a multiple of no tile) with runs of
    4s and a contig shorter than k, kmer_canon also at rows of 4144 codes
    (16-byte aligned, ending mid-run in a second tile); build_columns also
    at k = 31 and 33 on 64 genomes of 65,613 codes (over 1,000 of its
    tiles), each with a run of 1,000 As, so that the all-A k-mer's first
-   matrix word covers several whole tiles; then both builders
+   matrix word covers several whole tiles; merge_columns also on batches
+   of 32, 32 and 6 genomes and of 64 (two word rows) and 6, with unequal
+   buckets, at k = 9, 31, 32, 33 and 64: as built, with no valid row, and
+   with every row valid (each bucket exactly full); then both builders
    on the card against the same builders through the plain versions on
    the CPU, with and without the singleton filter, at k = 16, 31 and 33,
    at the all-T k-mer of k = 16 and 32, and with a batch bucket that is
@@ -180,6 +183,13 @@ INGEST_CANON_LENGTH = 4096 + 48
 # k <= 64: csrc/device_build.cu), with one k-mer's word over whole tiles.
 HOT_CASE_KS, HOT_CASE_GENOMES = (31, 33), 64
 HOT_CASE_LENGTH, HOT_RUN = 16 * 4096 + 77, 1000
+# merge_columns on batches of genome rows [0, 32), [32, 64), [64, 70), and
+# [0, 64) (two word rows), [64, 70), of INGEST_CASE_LENGTH codes, each
+# bucket sized as the batched builder sizes it without a batch budget (the
+# last one smaller); k = 32 takes one key plane with a validity plane, 33
+# and 64 two planes.
+MERGE_CASE_KS = (9, 31, 32, 33, 64)
+MERGE_CASE_SPLITS = ((0, 32, 64, 70), (0, 64, 70))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, throughput, cc 9.0
 
@@ -218,8 +228,8 @@ KERNELS = {
 # pass 1 (the frontier sweep), its tuple tables and its compaction of the
 # chosen master's equivalence sets; the argmax engine's frontier sweep; the
 # host engine's per-node class counts. Device ingest: the windows, the
-# batch columns, the union merge, the singleton filter (its column counts by
-# popcount_colsum), then train_scm's greedy steps (popcount_colsum).
+# batch columns, the union merge, the singleton filter (its column counts
+# inside its kernel), then train_scm's greedy steps (popcount_colsum).
 PATH_KERNELS = {
     "device": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "device-argmax": ("scm_sweep_argmax", "popcount_colsum_pairs",
@@ -243,9 +253,8 @@ KERNEL_FUNCTIONS = {
                           "cart_exact_write_kernel"),
     "kmer_canon": "kmer_canon_kernel",
     "build_columns": "build_columns_tile_kernel",
-    "merge_columns": ("columns_flags_kernel", "merge_dest_kernel",
-                      "scatter_columns_kernel"),
-    "compact_columns": ("compact_flags_kernel", "compact_gather_kernel"),
+    "merge_columns": "merge_columns_tile_kernel",
+    "compact_columns": "compact_columns_tile_kernel",
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -1026,9 +1035,8 @@ def ingest_case(device, rng, k, n_genomes, record):
     INGEST_CASE_LENGTH and INGEST_CANON_LENGTH), build_columns (with a
     budget the union fits and one it overflows), compact_columns,
     merge_columns (rows [0, 32) and [32, G) merged, as the batched builder
-    merges batches, and their scatter) on the card against their plain
-    versions on the same inputs. ``record(name, got, want,
-    what)`` compares."""
+    merges batches) on the card against their plain versions on the same
+    inputs. ``record(name, got, want, what)`` compares."""
     import torch
 
     from grm_tpu_torch.ops import device_build as db
@@ -1062,29 +1070,71 @@ def ingest_case(device, rng, k, n_genomes, record):
            db.compact_columns_plain(matrix, union, n_kmers), what)
     bounds = [0, 32, g] if g > 32 else [0, g]
     parts = [pdb._build(codes[lo:hi].contiguous(), k, g * n, False)
-             for lo, hi in zip(bounds, bounds[1:])]
-    words = torch.cat([p[1] for p in parts])
-    valids = torch.cat([torch.arange(g * n, device=device) < p[2]
-                        for p in parts])
-    mkeys, mperm, mvalid = km.sort_keys(km.pair_keys(words.T, valids),
-                                        None if single else valids)
-    for budget in (g * n, 700):
-        got = db.merge_ranks(mkeys, mperm, mvalid, nw, budget)
-        record("merge_columns", got,
-               db.merge_ranks_plain(mkeys, mperm, mvalid, nw, budget),
-               "%s merge k_budget=%d" % (what, budget))
-        final = torch.zeros((-(-g // 32), budget), dtype=torch.int32,
-                            device=device)
-        plain = final.clone()
-        for i, (p, lo) in enumerate(zip(parts, bounds)):
-            dest = got[0][i * g * n:(i + 1) * g * n]
-            db.scatter_batch_columns(final, p[0], dest, lo // 32)
-            db.scatter_batch_columns_plain(plain, p[0], dest, lo // 32)
-        record("merge_columns", final, plain,
-               "%s scatter k_budget=%d" % (what, budget))
+             + (lo // 32,) for lo, hi in zip(bounds, bounds[1:])]
+    merge_case(parts, k, -(-g // 32), (g * n, 700), what, record)
     canon(torch.from_numpy(ingest_codes(rng, g, INGEST_CANON_LENGTH,
                                         k)).to(device),
           "k=%d G=%d L=%d" % (k, g, INGEST_CANON_LENGTH))
+
+
+def merge_case(parts, k, w_total, budgets, what, record):
+    """merge_columns on the card against its plain version (merge_ranks
+    and a scatter per batch) at each of ``budgets``: ``parts`` are the
+    batches, (matrix (wb, bucket), union (bucket, nw), valid rows (1,)
+    or an int, w_off) each, merged as the batched builder merges them."""
+    import torch
+
+    from grm_tpu_torch.ops import device_build as db
+    from grm_tpu_torch.ops import kmer as km
+
+    words = torch.cat([p[1] for p in parts])
+    valids = torch.cat([torch.arange(p[1].shape[0], device=words.device)
+                        < p[2] for p in parts])
+    keys, perm, valid = km.sort_keys(
+        km.pair_keys(words.T, valids),
+        None if k <= km.MAX_SINGLE_KEY_K else valids)
+    batches = [(p[0], p[3]) for p in parts]
+    nw = km.n_words_for_k(k)
+    for budget in budgets:
+        record("merge_columns",
+               db.merge_columns(keys, perm, valid, batches, nw, budget,
+                                w_total),
+               db.merge_columns_plain(keys, perm, valid, batches, nw, budget,
+                                      w_total),
+               "%s merge k_budget=%d" % (what, budget))
+
+
+def merge_cases(device, rng, k, record):
+    """Phase 3's merges of MERGE_CASE_SPLITS at k: each batch built with a
+    bucket of its own, the next power of two from 1024 at or above its
+    window count (the last bucket smaller), then merged as built (with a
+    budget the union fits and one it overflows), with no valid row (every
+    batch's count 0), and with every row valid (each batch cut to its
+    count, so that every bucket is exactly full)."""
+    import torch
+
+    from grm_tpu_torch.parallel import device_build as pdb
+
+    n = INGEST_CASE_LENGTH
+    for split in MERGE_CASE_SPLITS:
+        g = split[-1]
+        codes = torch.from_numpy(ingest_codes(rng, g, n, k)).to(device)
+        parts = []
+        for lo, hi in zip(split, split[1:]):
+            bucket = 1 << max(10, ((hi - lo) * n - 1).bit_length())
+            parts.append(pdb._build(codes[lo:hi].contiguous(), k, bucket,
+                                    False) + (lo // 32,))
+        buckets = [p[0].shape[1] for p in parts]
+        what = "k=%d G=%d L=%d buckets %s" % (k, g, n, buckets)
+        w_total = -(-g // 32)
+        merge_case(parts, k, w_total, (sum(buckets), 700), what, record)
+        merge_case([(m, u, 0, w) for m, u, _, w in parts], k, w_total,
+                   (sum(buckets),), what + ", no valid row", record)
+        counts = [int(p[2]) for p in parts]
+        full = [(m[:, :c].contiguous(), u[:c].contiguous(), c, w)
+                for (m, u, _, w), c in zip(parts, counts)]
+        merge_case(full, k, w_total, (sum(counts), 700),
+                   what + ", every row valid", record)
 
 
 def hot_kmer_case(device, rng, k, record):
@@ -1166,9 +1216,10 @@ def check_ingest_kernels(device):
     """Phase 3, ingest: kmer_canon, build_columns, merge_columns and
     compact_columns equal their plain versions exactly on the card at every
     (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case),
-    build_columns over many tiles (hot_kmer_case), then the builders
-    (ingest_builder_cases). Returns the largest error per kernel
-    (all 0.0)."""
+    build_columns over many tiles (hot_kmer_case), merge_columns on
+    unequal batches (merge_cases), then the builders
+    (ingest_builder_cases).
+    Returns the largest error per kernel (all 0.0)."""
     rng = np.random.RandomState(5)
     worst = {}
 
@@ -1184,6 +1235,8 @@ def check_ingest_kernels(device):
             ingest_case(device, rng, k, g, record)
     for k in HOT_CASE_KS:
         hot_kmer_case(device, rng, k, record)
+    for k in MERGE_CASE_KS:
+        merge_cases(device, rng, k, record)
     ingest_builder_cases(device, rng, record)
     return worst
 
@@ -1801,8 +1854,11 @@ def run_ingest(device, seed, paths):
         "%.3f s unprofiled wall; the sorts %.2f ms; by kernel:"
         % (total, 100.0 * total / ((t_build + t_fit) * 1e3),
            t_build + t_fit, sort_ms))
-    for us, key, count in sorted(rows, reverse=True)[:10]:
-        log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
+    # The ten longest lines, then every line of the path's hand kernels.
+    hand = [KERNEL_FUNCTIONS[k] for k in PATH_KERNELS["ingest-device"]]
+    for i, (us, key, count) in enumerate(sorted(rows, reverse=True)):
+        if i < 10 or any(_is_function(key, f) for f in hand):
+            log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
     return codes_list
 
 
@@ -1811,10 +1867,13 @@ def time_ingest_kernels(codes_list, device, paths, card):
     32-genome batch for kmer_canon and build_columns; every batch's union
     for merge_columns; the merged matrix for compact_columns), equal to its
     plain version on the same inputs, and torch.sort at one batch. ``ms``
-    is one call of the wrapper by CUDA events (its torch.cumsum and output
-    fills included), ``kernel_ms`` the hand kernels' own device time from
-    torch.profiler; ``bound_ms`` the bytes of the call's inputs read once
-    and outputs written once at the memory rate. Returns the rows."""
+    is one call of the wrapper by CUDA events (its output fills and scratch
+    zeroing included), ``kernel_ms`` the hand kernel's own device time from
+    torch.profiler; ``bound_ms`` the bytes that the call's inputs need read
+    once and its outputs written once, at the memory rate: merge_columns'
+    valid rows (``bound_ms_all_rows`` counts every row read) and
+    compact_columns' live columns (``bound_ms_whole``: the whole matrix).
+    Returns the rows."""
     import torch
 
     from grm_tpu_torch.ops import device_build as db
@@ -1823,7 +1882,7 @@ def time_ingest_kernels(codes_list, device, paths, card):
 
     rows = {}
 
-    def row(name, kernel, plain, nbytes, reps, shape, **more):
+    def row(name, kernel, plain, nbytes, reps, shape, keep=(), **more):
         err = exact_err(kernel(), plain())
         if err != 0.0:
             raise AssertionError("%s differs from its plain version at the "
@@ -1833,7 +1892,7 @@ def time_ingest_kernels(codes_list, device, paths, card):
         rows[name] = {"max_abs_err": err, "ms": ms,
                       "plain_ms": time_cuda(plain, 1),
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bound_by": "bytes", "library_ms": None}
+                      "bound_by": "bytes", "library_ms": None, **dict(keep)}
         log(json.dumps({"kernel": name, "shape": shape, **rows[name],
                         "kernel_ms": kernel_ms, "timed_by": timed_by,
                         "launches": {e: paths[e][name] for e in paths},
@@ -1880,29 +1939,34 @@ def time_ingest_kernels(codes_list, device, paths, card):
     mkeys, mperm, _ = km.sort_keys(km.pair_keys(words.T, valids))
     del words, valids
     w_total = -(-len(codes_list) // 32)
-
-    def merge(ranks, scatter):
-        dest, union, n_merged = ranks(mkeys, mperm, None, nw, INGEST_BUDGET)
-        final = torch.zeros((w_total, INGEST_BUDGET), dtype=torch.int32,
-                            device=device)
-        for i, (b_matrix, _, _, lo) in enumerate(batches):
-            scatter(final, b_matrix, dest[i * bucket:(i + 1) * bucket],
-                    lo // 32)
-        return final, union, n_merged
-
-    r = mkeys.shape[1]
-    row("merge_columns", lambda: merge(db.merge_ranks, db.scatter_batch_columns),
-        lambda: merge(db.merge_ranks_plain, db.scatter_batch_columns_plain),
-        16 * r + 4 * r + 4 * INGEST_BUDGET * (nw + w_total) + 4, 3,
-        "%d batches x %d union rows, k_budget %d" % (len(batches), bucket,
-                                                     INGEST_BUDGET))
-    final, union, n_merged = merge(db.merge_ranks, db.scatter_batch_columns)
-    del batches, mkeys, mperm
+    merged = [(b[0], b[3] // 32) for b in batches]
+    r, out_bytes = mkeys.shape[1], 4 * INGEST_BUDGET * (nw + w_total) + 4
+    # The bound counts the valid rows only (key, perm and the batch's
+    # words of each); the bound of every row read beside it.
+    valid_rows = sum(int(b[2]) for b in batches)
+    word_bytes = sum(4 * b[0].shape[0] * int(b[2]) for b in batches)
+    row("merge_columns",
+        lambda: db.merge_columns(mkeys, mperm, None, merged, nw,
+                                 INGEST_BUDGET, w_total),
+        lambda: db.merge_columns_plain(mkeys, mperm, None, merged, nw,
+                                       INGEST_BUDGET, w_total),
+        16 * valid_rows + word_bytes + out_bytes, 5,
+        "%d batches x %d union rows, %d valid, k_budget %d"
+        % (len(batches), bucket, valid_rows, INGEST_BUDGET),
+        keep={"bound_ms_all_rows":
+              (20 * r + out_bytes) / HBM_BYTES_PER_S * 1e3},
+        ptxas=kernel_ptxas("device_build", "merge_columns_tile_kernel"))
+    final, union, n_merged = db.merge_columns(mkeys, mperm, None, merged, nw,
+                                              INGEST_BUDGET, w_total)
+    del batches, merged, mkeys, mperm
+    live, width = int(n_merged.item()), w_total + nw
     row("compact_columns", lambda: db.compact_columns(final, union, n_merged),
         lambda: db.compact_columns_plain(final, union, n_merged),
-        2 * 4 * INGEST_BUDGET * (w_total + nw) + 8, 20,
-        "W=%d K=%d, %d live columns" % (w_total, INGEST_BUDGET,
-                                        int(n_merged.item())))
+        4 * width * live + 4 * INGEST_BUDGET * width + 8, 20,
+        "W=%d K=%d, %d live columns" % (w_total, INGEST_BUDGET, live),
+        keep={"bound_ms_whole":
+              (2 * 4 * INGEST_BUDGET * width + 8) / HBM_BYTES_PER_S * 1e3},
+        ptxas=kernel_ptxas("device_build", "compact_columns_tile_kernel"))
     return rows
 
 

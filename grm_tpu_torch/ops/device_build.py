@@ -1,22 +1,22 @@
 """The device ingest's column steps: from sorted windows to the packed
 presence matrix, the union merge of batches and the singleton filter.
 
-The CUDA kernels are ``csrc/device_build.cu``; each wrapper launches them
-for a CUDA tensor and runs its plain PyTorch version for a CPU one. One
-call of a wrapper counts one launch in ``_build.launches``, whatever number
-of CUDA launches it makes (a flags launch, a ``torch.cumsum``, a write
-launch):
+The CUDA kernels are ``csrc/device_build.cu``; each wrapper launches one
+for a CUDA tensor and runs its plain PyTorch version for a CPU one, and
+one call counts one launch in ``_build.launches``. Each kernel's scan is a
+look-back across tiles inside the kernel, so no wrapper makes a flags
+tensor or a ``torch.cumsum``:
 
 - :func:`build_columns` (``build_columns``) replaces ``_build`` after its
-  sort (``grm_tpu/parallel/device_build.py:92-140``), in one launch: its
-  scan is a look-back across tiles inside the kernel;
-- :func:`merge_ranks` and :func:`scatter_batch_columns` (both
-  ``merge_columns``) replace ``_merge_ranks`` (:158) and
-  ``_scatter_batch_columns`` (:207);
+  sort (``grm_tpu/parallel/device_build.py:92-140``);
+- :func:`merge_columns` (``merge_columns``) replaces ``_merge_ranks``
+  (:158) and every batch's ``_scatter_batch_columns`` (:207): from the
+  merge sort's rows straight to the final matrix, with no ``dest``. Its
+  plain version is :func:`merge_ranks_plain` followed by
+  :func:`scatter_batch_columns_plain` per batch;
 - :func:`compact_columns` (``compact_columns``) replaces
-  ``_compact_singletons`` (:222) and ``_build``'s filter (:142); it counts
-  each column's genomes with :func:`~.popcount.popcount_colsum` and an
-  all-ones mask.
+  ``_compact_singletons`` (:222) and ``_build``'s filter (:142), each
+  column's genome count included.
 
 Inputs come from :func:`~.kmer.sort_keys`: the sorted keys (n_pairs, n)
 int64, the permutation (n,) int64 (each sorted row's input position) and
@@ -35,7 +35,7 @@ import torch
 
 from . import _build
 from .kmer import run_flags, unpack_keys
-from .popcount import popcount_colsum, popcount_colsum_plain
+from .popcount import popcount_colsum_plain
 
 __all__ = [
     "TRASH",
@@ -43,24 +43,25 @@ __all__ = [
     "build_columns_plain",
     "compact_columns",
     "compact_columns_plain",
-    "merge_ranks",
+    "merge_columns",
+    "merge_columns_plain",
     "merge_ranks_plain",
-    "scatter_batch_columns",
     "scatter_batch_columns_plain",
 ]
 
 TRASH = 2**31 - 1  # the merged column of an invalid row
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "grm_columns_flags": ([_P, _I, _L, _P, _P, _P], _I),
     "grm_build_columns_tiles": ([_I, _L], _L),
     "grm_build_columns": ([_P, _I, _L, _P, _P, ctypes.c_uint, _I, _I, _L, _I,
                            _P, _P, _P, _P, _P], _I),
-    "grm_merge_dest": ([_P, _I, _L, _P, _P, _P, _L, _I, _P, _P, _P], _I),
-    "grm_scatter_columns": ([_P, _I, _L, _P, _P, _I, _L, _P], _I),
-    "grm_compact_flags": ([_P, _L, _P, _P, _P], _I),
-    "grm_compact_gather": ([_P, _P, _I, _L, _I, _P, _P, _P, _P], _I),
+    "grm_merge_columns_tiles": ([_I, _L], _L),
+    "grm_merge_columns": ([_P, _I, _L, _P, _P, _P, _I, _L, _I, _P, _P, _P, _P,
+                           _P], _I),
+    "grm_compact_columns_tiles": ([_L], _L),
+    "grm_compact_columns": ([_P, _P, _I, _L, _I, _P, _P, _P, _P, _P, _P], _I),
 }
+MAX_MERGE_BATCHES = 1024  # csrc/device_build.cu kMaxMergeBatches
 
 
 def _stream(t):
@@ -174,7 +175,10 @@ def build_columns(keys, perm, valid, nw, n_cols, k_budget):
 
 
 def merge_ranks_plain(keys, perm, valid, nw, k_budget):
-    """Plain PyTorch version of :func:`merge_ranks`."""
+    """The merged columns of the batches' union rows from their merge
+    sort: (dest (n,) int32 in input order, the row's column in the merged
+    union or ``TRASH`` for an invalid row; merged union words (k_budget,
+    nw) int32; the merged k-mer count (1,) int32)."""
     _check_sorted(keys, perm, valid)
     valid, new = run_flags(keys, valid)
     first = new & valid
@@ -183,37 +187,6 @@ def merge_ranks_plain(keys, perm, valid, nw, k_budget):
     dest = torch.empty(keys.shape[1], dtype=torch.int32, device=keys.device)
     dest[perm] = torch.where(valid, col, TRASH).to(torch.int32)
     return dest, _union_plain(keys, first, col, nw, k_budget), _count(scan)
-
-
-def merge_ranks(keys, perm, valid, nw, k_budget):
-    """The merged columns of the batches' union rows from their merge
-    sort: (dest (n,) int32 in input order, the row's column in the merged
-    union or ``TRASH`` for an invalid row; merged union words (k_budget,
-    nw) int32; the merged k-mer count (1,) int32)."""
-    _check_sorted(keys, perm, valid)
-    if keys.device.type != "cuda":
-        return merge_ranks_plain(keys, perm, valid, nw, k_budget)
-    lib = _build.library("device_build", _SIGNATURES)
-    n_pairs, n = keys.shape
-    dev = keys.device
-    dest = torch.empty(n, dtype=torch.int32, device=dev)
-    union = torch.zeros((k_budget, nw), dtype=torch.int32, device=dev)
-    if n == 0:
-        return dest, union, torch.zeros(1, dtype=torch.int32, device=dev)
-    vp = None if valid is None else valid.data_ptr()
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _build.check(lib.grm_columns_flags(
-            keys.data_ptr(), n_pairs, n, vp, flags.data_ptr(),
-            _stream(keys)), "merge_columns flags")
-        scan = torch.cumsum(flags, 0, dtype=torch.int32)
-        del flags
-        _build.check(lib.grm_merge_dest(
-            keys.data_ptr(), n_pairs, n, vp, perm.data_ptr(),
-            scan.data_ptr(), k_budget, nw, dest.data_ptr(),
-            union.data_ptr(), _stream(keys)), "merge_columns")
-        _build.launches["merge_columns"] += 1
-    return dest, union, _count(scan)
 
 
 def _check_scatter(final, batch, dest, w_off):
@@ -229,30 +202,99 @@ def _check_scatter(final, batch, dest, w_off):
 
 
 def scatter_batch_columns_plain(final, batch, dest, w_off):
-    """Plain PyTorch version of :func:`scatter_batch_columns`."""
+    """Place a batch's word rows at their merged columns, in place:
+    ``final[w_off + w, dest[j]] = batch[w, j]`` for every ``dest[j]`` below
+    ``final``'s width. The batches own disjoint word rows, so no OR."""
     _check_scatter(final, batch, dest, w_off)
     ok = dest < min(final.shape[1], TRASH)
     final[w_off:w_off + batch.shape[0], dest[ok].long()] = batch[:, ok]
     return final
 
 
-def scatter_batch_columns(final, batch, dest, w_off):
-    """Place a batch's word rows at their merged columns, in place:
-    ``final[w_off + w, dest[j]] = batch[w, j]`` for every ``dest[j]`` below
-    ``final``'s width. The batches own disjoint word rows, so no OR."""
-    _check_scatter(final, batch, dest, w_off)
-    if final.device.type != "cuda":
-        return scatter_batch_columns_plain(final, batch, dest, w_off)
+def _check_batches(keys, batches, w_total):
+    if not batches or len(batches) > MAX_MERGE_BATCHES:
+        raise ValueError("1 to %d batches a merge" % MAX_MERGE_BATCHES)
+    for matrix, w_off in batches:
+        if matrix.dtype != torch.int32 or matrix.dim() != 2 \
+                or not matrix.is_contiguous():
+            raise ValueError("a batch matrix must be a contiguous (wb, "
+                             "bucket) int32 tensor")
+        if matrix.device != keys.device:
+            raise ValueError("the batches must be on the keys' device")
+        if not 0 <= w_off <= w_total - matrix.shape[0]:
+            raise ValueError("a batch's word rows [w_off, w_off + wb) must "
+                             "lie in [0, w_total)")
+    if sum(m.shape[1] for m, _ in batches) != keys.shape[1]:
+        raise ValueError("the batches' buckets must add up to the merge rows")
+
+
+def merge_columns_plain(keys, perm, valid, batches, nw, k_budget, w_total):
+    """Plain PyTorch version of :func:`merge_columns`:
+    :func:`merge_ranks_plain`, then :func:`scatter_batch_columns_plain`
+    for each batch."""
+    _check_sorted(keys, perm, valid)
+    _check_batches(keys, batches, w_total)
+    dest, union, count = merge_ranks_plain(keys, perm, valid, nw, k_budget)
+    final = torch.zeros((w_total, k_budget), dtype=torch.int32,
+                        device=keys.device)
+    off = 0
+    for matrix, w_off in batches:
+        bucket = matrix.shape[1]
+        scatter_batch_columns_plain(final, matrix, dest[off:off + bucket],
+                                    w_off)
+        off += bucket
+    return final, union, count
+
+
+def merge_columns(keys, perm, valid, batches, nw, k_budget, w_total):
+    """The union merge of genome batches, from the merge sort's rows to the
+    final packed matrix.
+
+    ``keys``, ``perm``, ``valid``: the sort of every batch's union rows
+    back to back (:func:`~.kmer.sort_keys`); ``batches``: each batch's
+    (matrix (wb, bucket) int32, w_off) in that order, its union rows being
+    ``bucket`` merge rows and its word rows ``[w_off, w_off + wb)`` of the
+    final matrix. Returns (final (w_total, k_budget) int32, with every
+    batch's columns at their merged columns; merged union words (k_budget,
+    nw) int32, zero past the last; the merged k-mer count (1,) int32).
+
+    The kernel relies on :func:`~.kmer.sort_keys`' order (the valid rows
+    first, so that it reads no padding past one key a tile); the plain
+    version does not.
+    """
+    _check_sorted(keys, perm, valid)
+    _check_batches(keys, batches, w_total)
+    if keys.device.type != "cuda":
+        return merge_columns_plain(keys, perm, valid, batches, nw, k_budget,
+                                   w_total)
     lib = _build.library("device_build", _SIGNATURES)
-    if batch.numel() == 0:
-        return final
-    with torch.cuda.device(final.device):
-        _build.check(lib.grm_scatter_columns(
-            batch.data_ptr(), batch.shape[0], batch.shape[1],
-            dest.data_ptr(), final.data_ptr(), w_off, final.shape[1],
-            _stream(final)), "merge_columns scatter")
+    n_pairs, n = keys.shape
+    dev = keys.device
+    final = torch.zeros((w_total, k_budget), dtype=torch.int32, device=dev)
+    union = torch.zeros((k_budget, nw), dtype=torch.int32, device=dev)
+    if n == 0:
+        return final, union, torch.zeros(1, dtype=torch.int32, device=dev)
+    # The batch table: address, first row, bucket, wb, w_off a batch.
+    rows, row0 = [], 0
+    for matrix, w_off in batches:
+        rows.append([matrix.data_ptr(), row0, matrix.shape[1],
+                     matrix.shape[0], w_off])
+        row0 += matrix.shape[1]
+    table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+    vp = None if valid is None else valid.data_ptr()
+    # The tile counter, then one look-back status a tile.
+    scratch = torch.zeros(1 + lib.grm_merge_columns_tiles(n_pairs, n),
+                          dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.grm_merge_columns(
+            keys.data_ptr(), n_pairs, n, vp, perm.data_ptr(),
+            table.data_ptr(), len(batches), k_budget, nw, final.data_ptr(),
+            union.data_ptr(), scratch.data_ptr(), count.data_ptr(),
+            _stream(keys)), "merge_columns")
         _build.launches["merge_columns"] += 1
-    return final
+    return final, union, count
 
 
 def _check_compact(matrix, union, n_kmers):
@@ -303,16 +345,14 @@ def compact_columns(matrix, union, n_kmers):
     union_out = torch.zeros_like(union)
     if k == 0:
         return out, union_out, torch.zeros(1, dtype=torch.int32, device=dev)
-    counts = popcount_colsum(matrix, _ones_mask(matrix))
-    flags = torch.empty(k, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(1 + lib.grm_compact_columns_tiles(k),
+                          dtype=torch.int64, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _build.check(lib.grm_compact_flags(
-            counts.data_ptr(), k, n_kmers.data_ptr(), flags.data_ptr(),
-            _stream(matrix)), "compact_columns flags")
-        scan = torch.cumsum(flags, 0, dtype=torch.int32)
-        _build.check(lib.grm_compact_gather(
+        _build.check(lib.grm_compact_columns(
             matrix.data_ptr(), union.data_ptr(), w, k, union.shape[1],
-            scan.data_ptr(), out.data_ptr(), union_out.data_ptr(),
-            _stream(matrix)), "compact_columns")
+            n_kmers.data_ptr(), out.data_ptr(), union_out.data_ptr(),
+            scratch.data_ptr(), count.data_ptr(), _stream(matrix)),
+            "compact_columns")
         _build.launches["compact_columns"] += 1
-    return out, union_out, _count(scan)
+    return out, union_out, count

@@ -17,8 +17,9 @@ Port of ``grm_tpu/parallel/device_build.py``, under the same names:
 
 The batched builder sorts one ``genome_batch`` at a time, keeps each
 batch's union and packed columns on the card, then merges every batch's
-union in one more sort (:func:`_merge_ranks`) and places each batch's word
-rows at their merged columns (:func:`_scatter_batch_columns`).
+union in one more sort and places each batch's word rows at their merged
+columns (:func:`_merge_columns`: ``grm_tpu``'s ``_merge_ranks`` and
+``_scatter_batch_columns`` in one kernel).
 
 The column axis is padded to ``k_budget``, the caller's bound on the union
 size; a union past it raises. Packed words are int32 bit patterns, genome
@@ -32,8 +33,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.device_build import (build_columns, compact_columns, merge_ranks,
-                                scatter_batch_columns)
+from ..ops.device_build import build_columns, compact_columns, merge_columns
 from ..ops.kmer import (MAX_SINGLE_KEY_K, n_words_for_k, pair_keys,
                         sort_keys, window_keys)
 from ..ops.popcount import BitMatrix
@@ -78,27 +78,30 @@ def _build(codes, k, k_budget, filter_singleton):
     return matrix, union, n_kmers
 
 
-def _merge_ranks(words, valids, k, k_budget):
-    """One union merge over every batch's union rows back to back.
+def _merge_columns(batches, k, k_budget, w_total):
+    """One union merge over every batch's union rows back to back, and
+    each batch's packed columns placed at their merged columns: the port of
+    ``grm_tpu/parallel/device_build.py:158`` ``_merge_ranks`` and of every
+    batch's ``_scatter_batch_columns`` (:207), in one sort and one kernel.
 
-    ``words``: (R, nw) int32, each batch's valid prefix sorted as
-    :func:`_build` leaves it; ``valids``: (R,) bool. Returns ``dest`` (R,)
-    int32 (each row's column in the merged, sorted, deduplicated union;
-    ``TRASH`` for an invalid row), the merged union words (k_budget, nw)
-    and the merged k-mer count (1,) int32. One sort of R rows (a pass per
-    pair of words past k = 31), whatever the number of batches; ties keep
-    the concatenation order.
+    ``batches``: (matrix (wb, bucket), union words (bucket, nw), n_kmers
+    (1,), word row, bucket) each, the union's valid prefix sorted as
+    :func:`_build` leaves it. Returns the final matrix (w_total, k_budget)
+    int32, the merged union words (k_budget, nw) and the merged k-mer
+    count (1,) int32. One sort of the concatenated rows (a pass per pair
+    of words past k = 31), whatever the number of batches; ties keep the
+    concatenation order. The batches own disjoint word rows, so no OR.
     """
+    dev = batches[0][0].device
+    words = torch.cat([b[1] for b in batches])
+    valids = torch.cat([torch.arange(b[4], device=dev) < b[2]
+                        for b in batches])
     keys = pair_keys(words.T, valids)
     keys, perm, valid = sort_keys(
         keys, None if k <= MAX_SINGLE_KEY_K else valids)
-    return merge_ranks(keys, perm, valid, words.shape[1], k_budget)
-
-
-def _scatter_batch_columns(final, b_matrix, dest_b, w_off):
-    """Place one batch's packed columns at their merged columns, in place.
-    The batch's word rows [w_off, w_off + wb) belong to no other batch."""
-    return scatter_batch_columns(final, b_matrix, dest_b, w_off)
+    del words, valids
+    return merge_columns(keys, perm, valid, [(b[0], b[3]) for b in batches],
+                         n_words_for_k(k), k_budget, w_total)
 
 
 def _compact_singletons(matrix, union, n_kmers):
@@ -167,13 +170,10 @@ def build_matrix_device_batched(codes_list, k, genome_ids=None, k_budget=None,
         b_matrix, b_union, b_n = _build_codes(sub, k, bucket, dev)
         batches.append((b_matrix, b_union, b_n, lo // 32, bucket))
 
-    # Phase 2: one union merge over the batches' unions; each batch's valid
-    # rows from its device count.
-    words = torch.cat([b[1] for b in batches])
-    valids = torch.cat([torch.arange(b[4], device=dev) < b[2]
-                        for b in batches])
-    dest, union, n_dev = _merge_ranks(words, valids, k, k_budget)
-    del words, valids
+    # Phase 2: one union merge over the batches' unions, each batch's valid
+    # rows from its device count, and each batch's packed columns placed at
+    # their merged columns.
+    final, union, n_dev = _merge_columns(batches, k, k_budget, w_total)
     counts = torch.cat([n_dev] + [b[2] for b in batches]).cpu().tolist()
     n_kmers = counts[0]
     for (_, _, _, lo32, bucket), b_n in zip(batches, counts[1:]):
@@ -184,14 +184,7 @@ def build_matrix_device_batched(codes_list, k, genome_ids=None, k_budget=None,
     if n_kmers > k_budget:
         raise ValueError(
             "k_budget=%d too small: union has %d k-mers" % (k_budget, n_kmers))
-
-    # Phase 3: each batch's packed columns to their merged columns.
-    final = torch.zeros((w_total, k_budget), dtype=torch.int32, device=dev)
-    off = 0
-    for b_matrix, _, _, w_off, bucket in batches:
-        _scatter_batch_columns(final, b_matrix, dest[off:off + bucket], w_off)
-        off += bucket
-    del batches, dest
+    del batches
 
     if filter_singleton:
         final, union, n_dev = _compact_singletons(final, union, n_dev)

@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
-"""Time the device ingest's per-batch kernels (``kmer_canon``'s sort key,
-``build_columns``) of one checkout on one NVIDIA GPU at ``chip_smoke.py``
-phase 6's shapes: the first batch of ``ingest-device`` (32 of the 342
-genomes of 4.4 Mbp that ``chip_smoke.ingest_genomes`` makes from seed 0,
-padded with 4s to a multiple of 4096 codes as the batched builder pads
-them: 140.9M windows, k = 31), then that batch's windows sorted and built
-into columns with a budget of 2^24 (``build_columns``, one launch of
-``build_columns_tile_kernel``). Each kernel is held against its plain
-version first (exact), and the build's ``ptxas`` registers and spills of
-the ``kmer`` and ``device_build`` libraries are printed.
+"""Time the device ingest's hand kernels of one checkout on one NVIDIA GPU
+at ``chip_smoke.py`` phase 6's shapes: ``ingest-device``'s genomes (342 of
+4.4 Mbp that ``chip_smoke.ingest_genomes`` makes from seed 0), k = 31,
+batches of 32 padded with 4s to a multiple of 4096 codes as the batched
+builder pads them, budgets of 2^24:
+
+- ``kmer_canon``'s sort key on the first batch (140.9M windows);
+- ``build_columns`` on that batch's sorted windows;
+- ``merge_columns`` on the merge sort of the 11 batches' unions (184.5M
+  rows, most of them bucket padding), to the final (11, 2^24) matrix;
+- ``compact_columns`` (the singleton filter) on that merged matrix.
+
+Each kernel is held against its plain version first (exact), and the
+build's ``ptxas`` registers and spills of the ``kmer`` and
+``device_build`` libraries are printed.
 
     python3 scripts/time_ingest_kernels.py [--repo DIR]
 
 ``--repo`` names the checkout whose package and ``chip_smoke.py`` helpers
 are used (default: the one holding this script), so that two versions of
-the kernels compare inside one machine: parent, change, change, parent.
+the kernels compare inside one machine: parent, change, change, parent. A
+checkout whose ``ops/device_build`` has no ``merge_columns`` entry is
+timed the way its own phase 6 timed it: ``merge_ranks``, a zeroed final
+matrix and one ``scatter_batch_columns`` a batch.
 Prints one JSON line per kernel: device ms per call from torch.profiler
 (the kernel functions' own time), CUDA events around the wrapper beside
-it, ``bound_ms`` (inputs read once and outputs written once at 3.35
-TB/s) and the card's ``nvidia-smi`` name and power limit.
+it (output fills and scratch zeroing included), ``bound_ms`` (the bytes
+the inputs need read once and the outputs written once, at 3.35 TB/s:
+the merge's valid rows, the filter's live columns; ``bound_ms_whole``
+counts every row or column instead) and the card's ``nvidia-smi`` name
+and power limit.
 """
 
 import argparse
@@ -26,7 +37,37 @@ import json
 import os
 import sys
 
-REPS = {"kmer_canon": 20, "build_columns": 5}
+REPS = {"kmer_canon": 20, "build_columns": 5, "merge_columns": 5,
+        "compact_columns": 20}
+
+
+def merge_entry(db, keys, perm, batches, nw, k_budget, w_total):
+    """(kernel, plain) callables of the union merge of ``batches``
+    ((matrix, union, count, first genome) each) for this checkout's
+    ``ops/device_build``."""
+    import torch
+
+    if hasattr(db, "merge_columns"):
+        merged = [(b[0], b[3] // 32) for b in batches]
+        return (lambda: db.merge_columns(keys, perm, None, merged, nw,
+                                         k_budget, w_total),
+                lambda: db.merge_columns_plain(keys, perm, None, merged, nw,
+                                               k_budget, w_total))
+
+    def composed(ranks, scatter):
+        dest, union, n_merged = ranks(keys, perm, None, nw, k_budget)
+        final = torch.zeros((w_total, k_budget), dtype=torch.int32,
+                            device=keys.device)
+        off = 0
+        for b_matrix, _, _, lo in batches:
+            bucket = b_matrix.shape[1]
+            scatter(final, b_matrix, dest[off:off + bucket], lo // 32)
+            off += bucket
+        return final, union, n_merged
+
+    return (lambda: composed(db.merge_ranks, db.scatter_batch_columns),
+            lambda: composed(db.merge_ranks_plain,
+                             db.scatter_batch_columns_plain))
 
 
 def main(argv=None):
@@ -45,8 +86,6 @@ def main(argv=None):
     import chip_smoke as cs
 
     from grm_tpu_torch.ops import _build
-    from grm_tpu_torch.ops import device_build as db
-    from grm_tpu_torch.ops import kmer as km
 
     _build.build_all()
     for source in ("kmer", "device_build"):
@@ -55,13 +94,23 @@ def main(argv=None):
             print(json.dumps({"repo": repo, "source": source,
                               "ptxas": function, "registers": int(regs),
                               "spills": spills}), flush=True)
-    device = torch.device("cuda")
-    card = cs.nvidia_smi("name,power.limit")
+    time_rows(cs, torch.device("cuda"), cs.nvidia_smi("name,power.limit"),
+              repo)
+    return 0
+
+
+def time_rows(cs, device, card, repo):
+    """The four rows, with ``cs`` the checkout's ``chip_smoke`` module."""
+    import torch
+
+    from grm_tpu_torch.ops import device_build as db
+    from grm_tpu_torch.ops import kmer as km
+    from grm_tpu_torch.parallel import device_build as pdb
+
     k = cs.INGEST_K
     codes_list, _, _ = cs.ingest_genomes(
         cs.INGEST_GENOMES, cs.INGEST_LENGTH, cs.INGEST_SNPS, cs.INGEST_POOL, 0)
     batch = codes_list[:cs.INGEST_BATCH]
-    del codes_list
     n_cols = -(-max(max(len(c) for c in batch), k) // 4096) * 4096
     codes = torch.full((len(batch), n_cols), 4, dtype=torch.int8)
     for i, c in enumerate(batch):
@@ -69,7 +118,7 @@ def main(argv=None):
     codes = codes.to(device)
     n = codes.numel()
 
-    def row(name, kernel, plain, nbytes, shape):
+    def row(name, kernel, plain, nbytes, shape, **more):
         err = cs.exact_err(kernel(), plain())
         if err != 0.0:
             raise AssertionError("%s differs from its plain version (%r)"
@@ -77,10 +126,12 @@ def main(argv=None):
         ms, timed_by = cs.device_ms(kernel, REPS[name],
                                     cs.KERNEL_FUNCTIONS[name])
         bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        more = {key: (v / cs.HBM_BYTES_PER_S * 1e3 if key.startswith("bound")
+                      else v) for key, v in more.items()}
         print(json.dumps({"repo": repo, "kernel": name, "shape": shape,
                           "ms": ms, "timed_by": timed_by,
                           "event_ms": cs.time_cuda(kernel, REPS[name]),
-                          "bound_ms": bound, "share": bound / ms,
+                          "bound_ms": bound, "share": bound / ms, **more,
                           "max_abs_err": err, "card": card}), flush=True)
 
     row("kmer_canon", lambda: km.kmer_canon(codes, k, key=True),
@@ -95,7 +146,35 @@ def main(argv=None):
         lambda: db.build_columns_plain(keys, perm, None, nw, n_cols, bucket),
         16 * n + 4 * bucket * (-(-len(batch) // 32) + nw) + 4,
         "%d sorted rows, k_budget %d" % (n, bucket))
-    return 0
+    del keys, perm
+
+    batches = [pdb._build_codes(codes_list[lo:lo + cs.INGEST_BATCH], k,
+                                bucket, device) + (lo,)
+               for lo in range(0, len(codes_list), cs.INGEST_BATCH)]
+    words = torch.cat([b[1] for b in batches])
+    valids = torch.cat([torch.arange(bucket, device=device) < b[2]
+                        for b in batches])
+    mkeys, mperm, _ = km.sort_keys(km.pair_keys(words.T, valids))
+    del words, valids
+    w_total = -(-len(codes_list) // 32)
+    kernel, plain = merge_entry(db, mkeys, mperm, batches, nw, bucket,
+                                w_total)
+    r, out_bytes = mkeys.shape[1], 4 * bucket * (nw + w_total) + 4
+    valid_rows = sum(int(b[2]) for b in batches)
+    word_bytes = sum(4 * b[0].shape[0] * int(b[2]) for b in batches)
+    row("merge_columns", kernel, plain,
+        16 * valid_rows + word_bytes + out_bytes,
+        "%d batches x %d union rows, %d valid, k_budget %d"
+        % (len(batches), bucket, valid_rows, bucket),
+        bound_ms_whole=20 * r + out_bytes)
+    final, union, n_merged = kernel()
+    del batches, mkeys, mperm, kernel, plain
+    live, width = int(n_merged.item()), w_total + nw
+    row("compact_columns", lambda: db.compact_columns(final, union, n_merged),
+        lambda: db.compact_columns_plain(final, union, n_merged),
+        4 * width * live + 4 * bucket * width + 8,
+        "W=%d K=%d, %d live columns" % (w_total, bucket, live),
+        bound_ms_whole=2 * 4 * bucket * width + 8)
 
 
 if __name__ == "__main__":

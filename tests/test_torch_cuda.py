@@ -523,3 +523,11 @@ def test_ingest_build_columns_over_many_tiles(cuda, k):
     """build_columns over more than 1,000 of its tiles, with one k-mer's
     first matrix word covering several whole tiles."""
     smoke.hot_kmer_case(cuda, np.random.RandomState(k), k, _record)
+
+
+@pytest.mark.parametrize("k", smoke.MERGE_CASE_KS)
+def test_ingest_merge_three_batches(cuda, k):
+    """merge_columns on batches with unequal buckets (32, 32 and 6
+    genomes; 64 and 6): as built, with no valid row, and with every row
+    valid."""
+    smoke.merge_cases(cuda, np.random.RandomState(k), k, _record)
