@@ -60,6 +60,11 @@ Phases (any failure exits non-zero and prints no result):
    the CPU, with and without the singleton filter, at k = 16, 31 and 33,
    at the all-T k-mer of k = 16 and 32, and with a batch bucket that is
    exactly full.
+   The streamed matrix's chunk source: its double-buffered uploads from
+   pinned memory (8 chunks, two buffers, the current stream kept busy)
+   against a plain upload of each chunk, bit for bit, popcount_colsum on
+   each chunk, the upload of hit superblocks, and
+   StreamingBitMatrix.presence_counts against its run on the CPU.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
@@ -71,7 +76,12 @@ Phases (any failure exits non-zero and prints no result):
    sets). Then a three-class 600 x 50,000 artifact, whose large nodes take
    the exact engine's gather regime (which must run):
    ``learn_CART(engine="device")`` must give the host engine's whole
-   fingerprint there too. Then the device ingest from FASTA files, 40
+   fingerprint there too. The same exact engines streamed (the budget
+   set by GRM_HBM_BUDGET_BYTES below the matrix, so that it stays in host
+   memory): SCM and CART at 342 x 200,000 in chunks of 2^16 columns and
+   the three-class artifact in chunks of 2^14, through its gather regime,
+   must give the host engines' whole fingerprints, each pass over 4
+   chunks from pinned memory. Then the device ingest from FASTA files, 40
    genomes of 200 kbp, k = 31: ``InMemoryDataset.from_contigs_device``
    through the single builder and the batched one (batches of 32, without
    and with the singleton filter) must give the host oracle's union and
@@ -82,19 +92,27 @@ Phases (any failure exits non-zero and prints no result):
 5. The main paths at full scale: 342 genomes x 9,600,000 k-mers (the
    published median, BASELINE.md), 5-fold split, built in memory from
    --seed with the benchmark's recipe (a planted 3-marker conjunction plus
-   decoys). Five paths, each driven with the launch counts set to 0 just
+   decoys). Seven learn paths, each driven with the launch counts set to 0 just
    before it and read just after: ``learn_SCM(engine="device")`` over the
    2 model types x 10 p grid, max 10 rules, plus ``write_scm_outputs``
    (what ``learn scm`` runs by default); ``learn_SCM(engine=
    "device-argmax")``; ``learn_CART(engine="device")`` (what ``learn
    tree`` runs by default on the card) with both criteria, depth 10, plus
    ``write_cart_outputs``; ``learn_CART(engine="device-argmax")``, the
-   same; and ``learn_CART(engine="host")`` with Gini, depth 3. Each path
+   same; ``learn_CART(engine="host")`` with Gini, depth 3; then
+   ``device-streamed`` and ``tree-device-streamed``: ``learn_SCM`` and
+   ``learn_CART`` with engine "device" again, the budget at 512 MiB so
+   that the 422 MB matrix streams from pinned host memory in the default
+   chunks of 2^21 columns (5, the last ragged); each must give its
+   resident path's fingerprint. Each path
    must launch the kernels it is built on (PATH_KERNELS) and learn a model
    with at least one rule and finite importances. One more run of each
    device path under torch.profiler must give the same fingerprint, and
    give the device time by kernel and the device's busy share of the
-   run.
+   run; for ``device``, ``tree-device`` and the streamed paths also the
+   host-to-device copies by kind (pinned or pageable: the chunk uploads
+   must be pinned), their bytes, time and rate, and the share of their
+   time during which a kernel ran.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
@@ -134,11 +152,12 @@ Phases (any failure exits non-zero and prints no result):
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
-the sum of the six paths' counts and ``launches_by_path`` gives each
+the sum of the eight paths' counts and ``launches_by_path`` gives each
 path's own. Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -190,6 +209,16 @@ HOT_CASE_LENGTH, HOT_RUN = 16 * 4096 + 77, 1000
 # and 64 two planes.
 MERGE_CASE_KS = (9, 31, 32, 33, 64)
 MERGE_CASE_SPLITS = ((0, 32, 64, 70), (0, 64, 70))
+# Streaming (a matrix past 60% of the device memory budget stays in host
+# memory and goes up chunk by chunk). Phase 3's chunk-source case: 11 word
+# rows (342 genomes), 8 chunks of 4096 columns, the last ragged: more chunks
+# than the two upload buffers. Phase 4 streams 342 x 200,000 in chunks of
+# 2^16 (4 chunks, the last ragged); phase 5 streams 342 x 9.6M at the
+# default 2^21 (5 chunks, the last 1,211,392 columns) under a budget whose
+# 60% is below the 422 MB packed matrix.
+STREAM_CASE = (11, 7 * 4096 + 123, 4096)
+SMALL_STREAM = (1 << 20, 1 << 16)  # GRM_HBM_BUDGET_BYTES, chunk columns
+STREAM_BUDGET = 512 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, throughput, cc 9.0
 
@@ -227,7 +256,9 @@ KERNELS = {
 # and its full-train fit (parallel/mesh.py). learn tree: the exact engine's
 # pass 1 (the frontier sweep), its tuple tables and its compaction of the
 # chosen master's equivalence sets; the argmax engine's frontier sweep; the
-# host engine's per-node class counts. Device ingest: the windows, the
+# host engine's per-node class counts. The streamed paths: the same exact
+# engines' kernels on each chunk uploaded from host memory (pass 2 of SCM on
+# the compacted hit superblocks). Device ingest: the windows, the
 # batch columns, the union merge, the singleton filter (its column counts
 # inside its kernel), then train_scm's greedy steps (popcount_colsum).
 PATH_KERNELS = {
@@ -237,6 +268,9 @@ PATH_KERNELS = {
     "tree-device": ("cart_sweep", "cart_exact_tuples", "cart_exact_select"),
     "tree-device-argmax": ("cart_sweep",),
     "tree-host": ("popcount_colsum",),
+    "device-streamed": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
+    "tree-device-streamed": ("cart_sweep", "cart_exact_tuples",
+                             "cart_exact_select"),
     "ingest-device": ("kmer_canon", "build_columns", "merge_columns",
                       "compact_columns", "popcount_colsum"),
 }
@@ -1240,6 +1274,204 @@ def check_ingest_kernels(device):
     ingest_builder_cases(device, rng, record)
     return worst
 
+# -- streaming ----------------------------------------------------------------
+
+def stream_cases(device, rng, record):
+    """Phase 3, streaming (tests/test_torch_cuda.py runs it too): the chunk
+    source's double-buffered uploads, with the current stream kept busy so
+    that the copies run ahead of it, against a plain upload of each chunk,
+    bit for bit, and popcount_colsum on each against its plain version on
+    the plain upload; the upload of hit superblocks (the ragged last one
+    among them); StreamingBitMatrix.presence_counts on the card against its
+    run on the CPU."""
+    import torch
+
+    from grm_tpu_torch.ops import popcount as pc
+    from grm_tpu_torch.ops.stream import ChunkSource
+
+    w, k, ch = STREAM_CASE
+    words = rng.randint(0, 2**32, size=(w, k), dtype=np.uint64).astype(
+        np.uint32)
+
+    def fill(dst, lo, hi):
+        dst[...] = words[:, lo:hi]
+
+    src = ChunkSource(w, k, fill, ch, device)
+    if not src.host.is_pinned():
+        raise AssertionError("the chunk layout is not in pinned memory")
+    masks = _words(rng, (3, w), device)
+    copies, counts = [], []
+    for _, _, chunk in src.chunks():
+        torch.cuda._sleep(1 << 21)  # the kernels' stream lags the copies
+        copies.append(chunk.clone())
+        counts.append(pc.popcount_colsum(chunk, masks))
+    if len(copies) != src.n_chunks or src.n_chunks <= 2:
+        raise AssertionError("the chunk source gave %d of %d chunks"
+                             % (len(copies), src.n_chunks))
+    padded = np.zeros((w, src.n_chunks * ch), np.uint32)
+    padded[:, :k] = words
+    for ci, (got, cnt) in enumerate(zip(copies, counts)):
+        plain = torch.from_numpy(np.ascontiguousarray(
+            padded[:, ci * ch:(ci + 1) * ch]).view(np.int32)).to(device)
+        what = "chunk %d of %d" % (ci, src.n_chunks)
+        record("chunk upload", got, plain, what)
+        record("popcount_colsum", cnt, pc.popcount_colsum_plain(plain, masks),
+               what)
+    sb, sbs = 1024, [0, 5, 6, 4 * src.n_chunks - 1]
+    want = np.zeros((w, 8 * sb), np.uint32)
+    for i, s in enumerate(sbs):
+        want[:, i * sb:(i + 1) * sb] = padded[:, s * sb:(s + 1) * sb]
+    record("superblock upload", src.superblocks(sbs, sb, 8 * sb),
+           torch.from_numpy(want.view(np.int32)).to(device),
+           "superblocks %s" % sbs)
+    rows = [rng.choice(342, 100, replace=False), np.arange(342)]
+    record("popcount_colsum", torch.from_numpy(
+        pc.StreamingBitMatrix(words, 342, ch, device).presence_counts(rows)),
+        torch.from_numpy(pc.StreamingBitMatrix(words, 342, ch, "cpu")
+                         .presence_counts(rows)),
+        "StreamingBitMatrix.presence_counts")
+
+
+def check_stream(device):
+    """Phase 3, streaming: :func:`stream_cases`. Returns the largest error
+    per check (all 0.0)."""
+    worst = {}
+
+    def record(name, got, want, what):
+        err = exact_err(got, want)
+        worst[name] = max(worst.get(name, 0.0), err)
+        if err != 0.0:
+            raise AssertionError("%s differs from its plain version at %s "
+                                 "(max abs err %r)" % (name, what, err))
+
+    stream_cases(device, np.random.RandomState(12), record)
+    return worst
+
+
+@contextlib.contextmanager
+def streaming(budget, chunk_cols=None):
+    """``GRM_HBM_BUDGET_BYTES`` (and ``GRM_STREAM_CHUNK_COLS``, unset for
+    the default) for the block: a dataset that builds its matrix inside
+    keeps it in host memory and streams it."""
+    names = ("GRM_HBM_BUDGET_BYTES", "GRM_STREAM_CHUNK_COLS")
+    saved = {n: os.environ.get(n) for n in names}
+    os.environ[names[0]] = str(budget)
+    if chunk_cols is None:
+        os.environ.pop(names[1], None)
+    else:
+        os.environ[names[1]] = str(chunk_cols)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+class ChunkWatch:
+    """Records, while active, every pass over a chunk source: the sources
+    (each is a streamed matrix) and the chunks of each pass."""
+
+    def __enter__(self):
+        from grm_tpu_torch.ops.stream import ChunkSource
+
+        self.cls, self.orig = ChunkSource, ChunkSource.chunks
+        self.sources, self.passes = [], []
+        watch = self
+
+        def chunks(src):
+            if all(s is not src for s in watch.sources):
+                watch.sources.append(src)
+            watch.passes.append(0)
+            for item in watch.orig(src):
+                watch.passes[-1] += 1
+                yield item
+
+        ChunkSource.chunks = chunks
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.chunks = self.orig
+
+    def summary(self):
+        """A line: passes, chunks a pass, bytes uploaded; fails if nothing
+        streamed or a layout is not pinned."""
+        if not self.passes or not self.sources:
+            raise AssertionError("no chunked sweep ran")
+        if not all(s.host.is_pinned() for s in self.sources):
+            raise AssertionError("a chunk layout is not in pinned memory")
+        return ("%d chunked passes (chunks a pass: %s), %d matrix bytes "
+                "uploaded" % (len(self.passes), sorted(set(self.passes)),
+                              self.uploaded()))
+
+    def uploaded(self):
+        return sum(s.bytes_uploaded for s in self.sources)
+
+
+def _measure(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def transfer_summary(prof, what, uploaded):
+    """The host-to-device copies of a profiled run, by kind (pinned or
+    pageable): count, bytes, device ms, GB/s; and the share of the copies'
+    time during which a kernel ran (copy/compute overlap). ``uploaded`` is
+    the bytes the chunk sources copied in that run: the pinned copies must
+    carry at least as many. Returns the summary, or None where the profile
+    holds no copies."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and "dur" in e]
+    copies = [e for e in events if "HtoD" in e.get("name", "")]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel"]
+    if not copies:
+        log("    %s: host-to-device copies not measured (no events)" % what)
+        return None
+    kinds = {}
+    for e in copies:
+        kind = kinds.setdefault(e["name"], {"count": 0, "bytes": 0,
+                                            "ms": 0.0})
+        kind["count"] += 1
+        kind["bytes"] += int(e.get("args", {}).get("bytes", 0))
+        kind["ms"] += e["dur"] / 1e3
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in copies]
+    copy_us = _measure(spans)
+    both_us = copy_us + _measure(kernels) - _measure(spans + kernels)
+    pinned = sum(v["bytes"] for k, v in kinds.items() if "Pinned" in k)
+    pinned_n = sum(v["count"] for k, v in kinds.items() if "Pinned" in k)
+    out = {"uploaded_bytes": uploaded, "pinned_bytes": pinned,
+           "htod_ms": copy_us / 1e3,
+           "overlap_share": both_us / copy_us if copy_us else 0.0,
+           "by_kind": kinds}
+    for k, v in sorted(kinds.items()):
+        log("      %s: %d copies, %d bytes, %.3f ms, %.2f GB/s"
+            % (k, v["count"], v["bytes"], v["ms"],
+               v["bytes"] / v["ms"] / 1e6 if v["ms"] else 0.0))
+    log("    %s: %d bytes uploaded by the chunk sources; host-to-device "
+        "%.3f ms of copies, %.1f%% of it beside a kernel"
+        % (what, uploaded, out["htod_ms"], 100.0 * out["overlap_share"]))
+    if uploaded and not pinned_n:
+        raise AssertionError("%s: no pinned host-to-device copy" % what)
+    if uploaded and pinned and pinned < uploaded:  # where the trace has bytes
+        raise AssertionError("%s: the chunk uploads (%d bytes) were not all "
+                             "pinned copies (%d bytes pinned)"
+                             % (what, uploaded, pinned))
+    return out
+
+
 # -- timing -------------------------------------------------------------------
 
 def time_cuda(fn, reps):
@@ -1975,7 +2207,8 @@ def profile_learn(what, run_once, wall, want):
     ``run_once()`` returns its fingerprint, which must be ``want``, the
     unprofiled run's. Prints the device time by kernel name and the
     device's busy share of ``wall``, the unprofiled run's wall seconds;
-    "not measured" if the profiler holds no device data."""
+    "not measured" if the profiler holds no device data. Returns the
+    profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1994,13 +2227,14 @@ def profile_learn(what, run_once, wall, want):
         rows = []
     if not rows:
         log("    device time by kernel: not measured (no device events)")
-        return
+        return prof
     total_ms = sum(r[0] for r in rows) / 1e3
     log("    device time over %s: %.2f ms = %.1f%% busy of the %.3f s "
         "unprofiled wall; by kernel:"
         % (what, total_ms, 100.0 * total_ms / (wall * 1e3), wall))
     for us, key, count in sorted(rows, reverse=True)[:8]:
         log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
+    return prof
 
 
 # -- phases -------------------------------------------------------------------
@@ -2082,6 +2316,12 @@ def run(seed):
     torch.cuda.synchronize()
     log("    ingest kernels and builders equal their plain versions (max abs "
         "err %s) in %.1f s" % (worst, time.time() - t0))
+    t0 = time.time()
+    worst = check_stream(device)
+    torch.cuda.synchronize()
+    log("    chunk source: double-buffered pinned uploads, hit superblocks and "
+        "StreamingBitMatrix.presence_counts equal plain uploads and runs "
+        "(max abs err %s) in %.1f s" % (worst, time.time() - t0))
 
     # 4. device engine == host engine at reduced size
     t0 = time.time()
@@ -2120,6 +2360,30 @@ def run(seed):
            tree_dev["test"]["risk"][0], t_host, t_dev))
     check_exact_tree(small, host_out, device, "%dx%d" % (MEDIAN_GENOMES,
                                                        SMALL_KMERS))
+    # The same learners streamed: the matrix stays in host memory and goes
+    # up in chunks of 2^16 columns (4 chunks, the last ragged).
+    n_chunks = -(-SMALL_KMERS // SMALL_STREAM[1])
+    with streaming(*SMALL_STREAM), ChunkWatch() as watch:
+        t0 = time.time()
+        fp_st = fingerprint(learn(small, "device", device))
+        if fp_st != fp_host:
+            raise AssertionError("streamed device engine != host engine at "
+                                 "%dx%d:\n%s\n%s" % (MEDIAN_GENOMES,
+                                                      SMALL_KMERS, fp_st,
+                                                      fp_host))
+        if max(watch.passes or [0]) != n_chunks:
+            raise AssertionError("learn_SCM streamed %s chunks a pass, not %d"
+                                 % (sorted(set(watch.passes)), n_chunks))
+        log("    learn_SCM(engine='device') streamed at %dx%d: fingerprint == "
+            "host; %.1f s; %s" % (MEDIAN_GENOMES, SMALL_KMERS,
+                                  time.time() - t0, watch.summary()))
+    with streaming(*SMALL_STREAM), ChunkWatch() as watch:
+        check_exact_tree(small, host_out, device, "%dx%d streamed"
+                         % (MEDIAN_GENOMES, SMALL_KMERS))
+        if max(watch.passes or [0]) != n_chunks:
+            raise AssertionError("learn_CART streamed %s chunks a pass, not "
+                                 "%d" % (sorted(set(watch.passes)), n_chunks))
+        log("    (streamed: %s)" % watch.summary())
     del small, host_out
     tri = build_artifact(TRI_GENOMES, TRI_KMERS, seed, device, n_classes=3)
     t0 = time.time()
@@ -2133,6 +2397,17 @@ def run(seed):
     if "cart_exact_select:gather" not in modes:
         raise AssertionError("the three-class artifact took no gather "
                              "regime (%s)" % sorted(modes))
+    # Streamed in chunks of 2^14 columns (4 chunks, the last ragged).
+    with streaming(SMALL_STREAM[0], 1 << 14), ChunkWatch() as watch:
+        modes = check_exact_tree(tri, host_out, device, "%dx%d, 3 classes, "
+                                 "streamed" % (TRI_GENOMES, TRI_KMERS))
+        if "cart_exact_select:gather" not in modes:
+            raise AssertionError("the streamed three-class artifact took no "
+                                 "gather regime (%s)" % sorted(modes))
+        if max(watch.passes or [0]) != -(-TRI_KMERS // (1 << 14)):
+            raise AssertionError("the three-class artifact streamed %s "
+                                 "chunks a pass" % sorted(set(watch.passes)))
+        log("    (streamed: %s)" % watch.summary())
     del tri, host_out
     t0 = time.time()
     for line in check_ingest_small(device, seed):
@@ -2179,6 +2454,16 @@ def run(seed):
             return "%s in %.2f s" % (sorted(os.listdir(out_dir)),
                                      time.time() - t1)
 
+    watches = {}  # streamed path -> the ChunkWatch of its latest run
+
+    def streamed(path, run_once):
+        """``run_once`` with the matrix past 60% of the budget: it stays in
+        host memory and streams in the default chunks."""
+        with streaming(STREAM_BUDGET), ChunkWatch() as watch:
+            out = run_once()
+        watches[path] = watch
+        return out
+
     runners = {
         "device": lambda: scm_path("device"),
         "device-argmax": lambda: scm_path("device-argmax"),
@@ -2187,6 +2472,11 @@ def run(seed):
         "tree-device-argmax": lambda: tree_path(
             "device-argmax", list(CART_CRITERIA), 10),
         "tree-host": lambda: tree_path("host", ["gini"], 3),
+        "device-streamed": lambda: streamed(
+            "device-streamed", lambda: scm_path("device")),
+        "tree-device-streamed": lambda: streamed(
+            "tree-device-streamed", lambda: tree_path(
+                "device", list(CART_CRITERIA), 10)),
     }
     paths = {}  # path -> launches, counted from 0 over that path alone
     fingerprints = {}
@@ -2213,6 +2503,20 @@ def run(seed):
         if path == "tree-device":
             exact_sizes = list(_build.exact_frontiers)
         fingerprints[path] = fp
+        if path.endswith("-streamed"):
+            resident = path[:-len("-streamed")]
+            if fp != fingerprints[resident]:
+                raise AssertionError("path %r learned another model than %r:"
+                                     "\n%s\n%s" % (path, resident, fp,
+                                                    fingerprints[resident]))
+            n_chunks = -(-MEDIAN_KMERS // (1 << 21))
+            if max(watches[path].passes or [0]) != n_chunks:
+                raise AssertionError("path %r streamed %s chunks a pass, not "
+                                     "%d" % (path, sorted(set(
+                                         watches[path].passes)), n_chunks))
+            log("    %s: fingerprint == %r's; wall %.2f s against %.2f s "
+                "resident; %s" % (path, resident, wall, walls[resident],
+                                  watches[path].summary()))
         if not fp["rules"] or not np.isfinite(fp["score"]):
             raise AssertionError("path %r learned no model" % path)
         if not all(np.isfinite(v) for v in fp["importances"]):
@@ -2244,14 +2548,38 @@ def run(seed):
             raise AssertionError("path %r launched no %s" % (path, missing))
     if not frontiers:
         raise AssertionError("the CART engines launched no frontier")
+    # What streaming adds on the host, inside each streamed path's wall:
+    # the pinned chunk layout, built once a dataset.
+    from grm_tpu_torch.ops.popcount import StreamingBitMatrix
+
+    m64 = GrmDataset(mem, device=device).kmer_matrix_u64()
+    t0 = time.time()
+    probe = torch.empty(m64.nbytes // 4, dtype=torch.int32, pin_memory=True)
+    t_pin = time.time() - t0
+    del probe
+    t0 = time.time()
+    layout = StreamingBitMatrix.from_u64(m64, MEDIAN_GENOMES, device=device)
+    log("    the streamed matrix's pinned layout: %d bytes in %d chunks, "
+        "built in %.3f s (a pinned allocation of the artifact's size alone: "
+        "%.3f s)" % (layout.source.host.nbytes, layout.source.n_chunks,
+                     time.time() - t0, t_pin))
+    del layout, m64
     for engine in ("device", "device-argmax"):
-        profile_learn("learn_SCM(engine=%r)" % engine,
-                      lambda: scm_path(engine)[1], walls[engine],
-                      fingerprints[engine])
+        prof = profile_learn("learn_SCM(engine=%r)" % engine,
+                             lambda: scm_path(engine)[1], walls[engine],
+                             fingerprints[engine])
+        if engine == "device":  # the resident upload, beside the streamed
+            transfer_summary(prof, "device", 0)
     for path in ("tree-device", "tree-device-argmax"):
-        profile_learn("learn_CART(engine=%r)" % path[len("tree-"):],
-                      lambda: runners[path]()[1], walls[path],
-                      fingerprints[path])
+        prof = profile_learn("learn_CART(engine=%r)" % path[len("tree-"):],
+                             lambda: runners[path]()[1], walls[path],
+                             fingerprints[path])
+        if path == "tree-device":
+            transfer_summary(prof, path, 0)
+    for path in ("device-streamed", "tree-device-streamed"):
+        prof = profile_learn(path, lambda: runners[path]()[1], walls[path],
+                             fingerprints[path])
+        transfer_summary(prof, path, watches[path].uploaded())
 
     # The device ingest path, on its own data.
     codes_list = run_ingest(device, seed, paths)

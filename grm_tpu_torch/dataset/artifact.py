@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.popcount import BitMatrix
+from ..ops.popcount import BitMatrix, StreamingBitMatrix
 from ..utils import unpack_binary_bytes_from_ints
 
 __all__ = ["GrmDataset", "MemoryArtifact", "MemoryDataset"]
@@ -251,30 +251,32 @@ class GrmDataset:
             return _parallel_gzip_read(ds)
 
     def _device_memory_budget(self):
-        """Bytes of device memory on this dataset's device; None on the CPU."""
+        """Bytes of device memory: ``GRM_HBM_BUDGET_BYTES`` where it is set
+        (``grm_tpu``'s override, honoured on the CPU too, so that a test can
+        force streaming), else the card's total; None on the CPU."""
+        env = os.environ.get("GRM_HBM_BUDGET_BYTES")
+        if env:
+            return int(env)
         if self.device.type != "cuda":
             return None
         _, total = torch.cuda.mem_get_info(self.device)
         return total
 
     def bit_matrix(self):
-        """The device-resident :class:`BitMatrix` (built once).
-
-        A matrix above 60% of the card's memory raises: streaming it through
-        the card (``StreamingBitMatrix``) is still to port (ROADMAP.md,
-        Queue 1, "StreamingBitMatrix and the streamed exact SCM engine")."""
+        """The packed matrix (built once): a device-resident
+        :class:`BitMatrix`, or, above 60% of the device memory budget, a
+        :class:`StreamingBitMatrix` that stays in host memory and streams
+        through the card chunk by chunk."""
         if self._bit_matrix is None:
             m64 = self.kmer_matrix_u64()
             device_bytes = m64.shape[0] * 2 * m64.shape[1] * 4
             budget = self._device_memory_budget()
             if budget is not None and device_bytes > 0.6 * budget:
-                raise MemoryError(
-                    "the packed k-mer matrix (%d bytes) exceeds 60%% of the "
-                    "device's %d bytes; StreamingBitMatrix is not ported yet "
-                    "(ROADMAP.md, Queue 1: StreamingBitMatrix and the "
-                    "streamed exact SCM engine)" % (device_bytes, budget))
-            self._bit_matrix = BitMatrix.from_u64(m64, self.genome_count,
-                                                  device=self.device)
+                self._bit_matrix = StreamingBitMatrix.from_u64(
+                    m64, self.genome_count, device=self.device)
+            else:
+                self._bit_matrix = BitMatrix.from_u64(
+                    m64, self.genome_count, device=self.device)
         return self._bit_matrix
 
     def get_matrix_columns(self, columns):

@@ -627,6 +627,19 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
     rule_blacklist = _find_rule_blacklist(dataset, kmer_blacklist_file,
                                           warning_callback)
 
+    if engine == "device-argmax":
+        # Matrices past the device memory budget come back as a
+        # host-resident StreamingBitMatrix. The EXACT engine (engine
+        # "device") streams column chunks through its sweeps; only the
+        # argmax scorer needs a resident matrix.
+        if not hasattr(dataset.bit_matrix(), "data"):
+            warning_callback(
+                "The k-mer matrix exceeds the device memory budget; "
+                "falling back to --engine host (streaming sweeps). Use "
+                "--engine device (streamed exact) or shard over a mesh."
+            )
+            engine = "host"
+
     criterion = list(np.unique(np.atleast_1d(criterion)))
     max_depth = list(np.unique(np.atleast_1d(max_depth)))
     min_samples_split = list(np.unique(np.atleast_1d(min_samples_split)))

@@ -370,6 +370,15 @@ def _hp_selection_loop(hp_list, scores_by_hp):
     return best_hp_score, best_hp
 
 
+def _make_exact_engine(bm, n_kmers, rule_blacklist):
+    """Resident exact engine, or the streamed (out-of-core) variant when
+    the matrix exceeded the device memory budget and came back
+    host-resident (StreamingBitMatrix) — either way, selection is
+    bit-identical."""
+    return ExactScmEngine(getattr(bm, "data", bm), n_kmers,
+                          excl_rules=rule_blacklist)
+
+
 def _cross_validation_device_exact(dataset, split_name, model_types, p_values,
                                    max_rules, progress_callback,
                                    rule_blacklist=(), collect_full_train=False):
@@ -445,7 +454,7 @@ def _cross_validation_device_exact(dataset, split_name, model_types, p_values,
             })
 
     progress_callback("Cross-validation", 0.0)
-    engine = ExactScmEngine(bm.data, n_kmers, excl_rules=rule_blacklist)
+    engine = _make_exact_engine(bm, n_kmers, rule_blacklist)
     if collect_full_train:
         rules_arr, _, errors, n_test, ties = engine.run_fits(
             fits, max_rules, collect_ties=True)
@@ -519,7 +528,7 @@ def _full_train_device_exact(dataset, split_name, model_type, p, max_rules,
                 split.unique_risk_by_kmer, split.unique_risk_by_anti_kmer,
                 n_kmers),
         }
-        engine = ExactScmEngine(bm.data, n_kmers, excl_rules=rule_blacklist)
+        engine = _make_exact_engine(bm, n_kmers, rule_blacklist)
         rules_arr, _, _, _, ties = engine.run_fits([fit], max_rules,
                                                    collect_ties=True)
         rule_idx = [int(r) for r in rules_arr[0] if r >= 0]
@@ -750,6 +759,19 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
     dataset = GrmDataset(dataset_file, device=device)
     rule_blacklist = _find_rule_blacklist(dataset, kmer_blacklist_file,
                                           warning_callback)
+
+    if engine == "device-argmax":
+        # Matrices beyond the device memory budget come back as a
+        # StreamingBitMatrix (host-resident); the argmax grid engine needs
+        # a resident matrix. The EXACT engine (engine "device") streams
+        # column chunks through the device instead.
+        if not hasattr(dataset.bit_matrix(), "data"):
+            warning_callback(
+                "The k-mer matrix exceeds the device memory budget; "
+                "falling back to --engine host (streaming sweeps). Use "
+                "--engine device (streamed exact) or shard over a mesh."
+            )
+            engine = "host"
 
     if parameter_selection == "bound":
         if bound_delta is None or bound_max_genome_size is None:

@@ -14,6 +14,10 @@ The sweep, for C row-selection masks at once::
 runs as the hand-written CUDA kernel ``csrc/popcount_colsum.cu`` on a CUDA
 tensor, and as its plain PyTorch version (SWAR popcount on int64, column
 block by column block) on a CPU tensor.
+
+:class:`BitMatrix` holds the matrix on the device; :class:`StreamingBitMatrix`
+keeps it in host memory (``ops/stream.py``) and runs the same kernel on each
+chunk it uploads.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ import torch
 from ..device import resolve_device
 from ..utils import build_row_mask, minimum_uint_size, unpack_binary_bytes_from_ints
 from . import _build
+from .stream import ChunkSource, split_u64_into
 
 __all__ = [
     "BitMatrix",
+    "StreamingBitMatrix",
     "popcount_colsum",
     "popcount_colsum_plain",
     "popcount_colsum_pairs",
@@ -51,14 +57,8 @@ def u64_matrix_to_u32(m64):
     ``w`` of the uint64 matrix becomes rows ``2w`` (high half, genomes
     ``[64w, 64w+32)``) and ``2w+1`` (low half)."""
     m64 = np.ascontiguousarray(m64, dtype=np.uint64)
-    out = np.empty((m64.shape[0] * 2,) + m64.shape[1:], dtype=np.uint32)
-    if np.little_endian:
-        halves = m64.view(np.uint32).reshape(m64.shape[0], -1, 2)
-        out[0::2] = halves[..., 1]
-        out[1::2] = halves[..., 0]
-    else:  # pragma: no cover - big-endian hosts
-        out[0::2] = (m64 >> np.uint64(32)).astype(np.uint32)
-        out[1::2] = (m64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out = np.empty((m64.shape[0] * 2, m64.shape[1]), dtype=np.uint32)
+    split_u64_into(out, m64, 0, m64.shape[1])
     return out
 
 
@@ -287,3 +287,95 @@ class BitMatrix:
             self.data, torch.as_tensor(cols, device=self.device))
         words = packed.cpu().numpy().view(np.uint32)  # (n, W)
         return unpack_binary_bytes_from_ints(words.T)[: self.n_rows]
+
+
+class StreamingBitMatrix:
+    """Out-of-core packed presence matrix: the words stay in host memory
+    and stream through the card chunk by chunk (port of
+    ``grm_tpu/ops/popcount.py:150-214``).
+
+    ``GrmDataset.bit_matrix`` returns one for a matrix past 60% of the
+    device's memory. ``source`` is its :class:`~grm_tpu_torch.ops.stream.
+    ChunkSource`: the chunk-major host layout (pinned on a CUDA device) that
+    :meth:`presence_counts` and the streamed exact SCM and CART engines walk.
+    ``block_cols`` is the chunk width (default: ``GRM_STREAM_CHUNK_COLS``,
+    else 2^21, rounded to whole superblocks); ``grm_tpu`` sweeps blocks of
+    2^22 columns here, but the width changes no count, so the chunks serve
+    and no second layout is kept.
+    """
+
+    def __init__(self, packed_u32, n_rows, block_cols=None, device=None):
+        packed = np.ascontiguousarray(packed_u32, dtype=np.uint32)
+        if packed.ndim != 2:
+            raise ValueError("StreamingBitMatrix expects a 2-D uint32-packed "
+                             "matrix.")
+
+        def fill(dst, lo, hi):
+            dst[...] = packed[:, lo:hi]
+
+        self._init(packed.shape[0], packed.shape[1], n_rows, fill, block_cols,
+                   device)
+
+    def _init(self, n_words, n_columns, n_rows, fill, block_cols, device):
+        self.n_rows = int(n_rows)
+        if n_words * 32 < self.n_rows:
+            raise ValueError("Packed matrix has too few word-rows for n_rows.")
+        self.source = ChunkSource(n_words, n_columns, fill, block_cols, device)
+        self.n_words = self.source.n_words
+        self.n_columns = self.source.n_columns
+        self.block_cols = self.source.chunk_cols
+        self.device = self.source.device
+
+    @classmethod
+    def from_u64(cls, m64, n_rows, block_cols=None, device=None):
+        """From the on-disk uint64 layout, split straight into the chunk
+        layout; word rows past the last genome's are dropped, as
+        :meth:`BitMatrix.from_u64` drops them."""
+        m64 = np.ascontiguousarray(m64, dtype=np.uint64)
+        self = cls.__new__(cls)
+        self._init(-(-int(n_rows) // 32), m64.shape[1], n_rows,
+                   lambda dst, lo, hi: split_u64_into(dst, m64, lo, hi),
+                   block_cols, device)
+        return self
+
+    @property
+    def shape(self):
+        """(n_genomes, 2 * n_kmers): presence then absence rules."""
+        return self.n_rows, self.n_columns * 2
+
+    def row_mask(self, rows):
+        return build_row_mask(np.asarray(rows, dtype=np.int64),
+                              self.n_words * 32, 32)
+
+    def presence_counts(self, rows_list):
+        """Presence counts for several row sets, one pass over the chunks
+        (the ``popcount_colsum`` kernel on each): (C, K) int64 numpy."""
+        masks = masks_to_tensor(
+            np.stack([self.row_mask(r) for r in rows_list]), self.device)
+        out = torch.empty((masks.shape[0], self.n_columns), dtype=torch.int32,
+                          device=self.device)
+        for lo, width, chunk in self.source.chunks():
+            out[:, lo:lo + width] = popcount_colsum(chunk, masks)[:, :width]
+        return out.cpu().numpy().astype(np.int64)
+
+    def sum_rows(self, rows):
+        """Length-2K vector, presence then absence counts, in the minimum
+        uint dtype for len(rows) (rules.py:201-267)."""
+        rows = np.asarray(rows)
+        presence = self.presence_counts([rows])[0]
+        out = np.empty(self.n_columns * 2,
+                       dtype=minimum_uint_size(max(rows.shape[0], 1)))
+        out[: self.n_columns] = presence
+        out[self.n_columns:] = rows.shape[0] - presence
+        return out
+
+    def get_columns_dense(self, cols):
+        """Unpacked presence columns (n_rows, len(cols)) uint8, gathered
+        from host memory."""
+        cols = np.asarray(cols, dtype=np.int64)
+        if cols.size == 0:
+            return np.empty((self.n_rows, 0), np.uint8)
+        if (cols < 0).any() or (cols >= self.n_columns).any():
+            raise IndexError("column index out of range")
+        return unpack_binary_bytes_from_ints(
+            np.ascontiguousarray(self.source.columns(cols).T))[: self.n_rows]

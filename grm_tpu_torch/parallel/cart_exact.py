@@ -39,9 +39,20 @@ threshold. What ``grm_tpu`` needed for the TPU is not ported: the distinct-
 key extraction with its budget and escalation, the per-chunk programs of
 ``_DeviceStream`` and their environment knobs, shape buckets, the debug
 timer, and the tuple, gather and equivalence budgets with their x8
-re-runs; the kernels take a frontier and a matrix of any size. A
-host-resident matrix (``_HostStream``) waits for the streamed bit matrix,
-and a ``mesh`` for the multi-device engines (ROADMAP.md).
+re-runs; the kernels take a frontier and a matrix of any size, so a
+resident matrix is swept whole (``grm_tpu``'s ``_DeviceStream`` and
+``GRM_MONOLITH_MAX_COLS`` existed because XLA could not compile long scans
+on the TPU). A ``mesh`` waits for the multi-device engines (ROADMAP.md).
+
+A :class:`~grm_tpu_torch.ops.popcount.StreamingBitMatrix` (past the device
+budget, in host memory) streams through the same kernels chunk by chunk
+(``_HostStream``, ``grm_tpu/parallel/cart_exact.py:495-537``): pass 1's
+per-node minima are reduced over the chunks; each chunk's tuple tables,
+built with the global thresholds, are merged in chunk order (the largest
+occurrence, then the lowest column at it; the lowest column of each
+tuple); the compacted columns are concatenated in ascending order. A
+chunk's columns become global by adding its first column in torch, which
+is exact, so no kernel takes a column base.
 """
 
 from __future__ import annotations
@@ -58,8 +69,8 @@ from ..ops.cart_exact import (
     key_bitmap,
     table_rows,
 )
-from ..ops.cart_sweep import cart_frontier_scores
-from ..ops.popcount import masks_to_tensor
+from ..ops.cart_sweep import NO_COLUMN, cart_frontier_scores
+from ..ops.popcount import StreamingBitMatrix, masks_to_tensor
 from .cart_device import _frontier_masks, _per_node_dicts
 from .scm_device import build_packed_mask
 
@@ -78,14 +89,50 @@ def _thresh_from_gmin(gmin, c):
                        torch.tensor(-np.inf, device=gmin.device))
 
 
+class _HostStream:
+    """A streamed matrix's chunks, each with its slice of the column
+    exclusion mask (the blacklist; padding columns too), cached on the bit
+    matrix per blacklist as ``grm_tpu`` caches its ``_HostStream``."""
+
+    def __init__(self, source, n_kmers, excl):
+        if n_kmers >= NO_COLUMN:
+            raise ValueError("the exact CART kernels index columns in int32")
+        self.source = source
+        self.n_kmers = n_kmers
+        self.excl = None
+        if excl is not None:
+            ch = source.chunk_cols
+            full = np.ones(source.n_chunks * ch, np.uint8)
+            full[:n_kmers] = 0
+            lim = min(len(excl), n_kmers)
+            full[:lim] |= np.asarray(excl[:lim], bool)
+            self.excl = torch.from_numpy(full.reshape(-1, ch)).to(
+                source.device)
+
+    @classmethod
+    def cached(cls, bit_matrix, excl):
+        key = None if excl is None else np.asarray(excl, bool).tobytes()
+        cache = getattr(bit_matrix, "_host_stream_cache", None)
+        if cache is None:
+            cache = bit_matrix._host_stream_cache = {}
+        if key not in cache:
+            cache[key] = cls(bit_matrix.source, bit_matrix.n_columns, excl)
+        return cache[key]
+
+    def chunks(self):
+        for ci, (lo, width, chunk) in enumerate(self.source.chunks()):
+            yield (lo, max(0, min(width, self.n_kmers - lo)), chunk,
+                   None if self.excl is None else self.excl[ci])
+
+
 class _Frontier:
     """A frontier's device inputs: masks, counts, scales and train masks,
-    with the column-exclusion mask of its matrix."""
+    with its matrix (resident, or streamed by chunks) and the matrix's
+    column-exclusion mask."""
 
     def __init__(self, bit_matrix, masks, n_node, priors, totals,
                  train_masks, excl):
         dev = self.device = bit_matrix.device
-        self.matrix = bit_matrix.data
         self.n_kmers = bit_matrix.n_columns
         self.masks = masks_to_tensor(masks, dev)
         self.train = masks_to_tensor(train_masks, dev)
@@ -94,16 +141,62 @@ class _Frontier:
         self.totals = torch.from_numpy(totals).to(dev)
         # The scales pass 1 scores with (ops/cart_sweep._frontier_scores).
         self.scale = (self.priors / self.totals).contiguous()
-        self.excl = None
+        self.matrix = self.excl = self.stream = None
+        if isinstance(bit_matrix, StreamingBitMatrix):
+            self.stream = _HostStream.cached(bit_matrix, excl)
+            return
+        self.matrix = bit_matrix.data
         if excl is not None:
             self.excl = torch.from_numpy(np.ascontiguousarray(
                 excl, dtype=bool).view(np.uint8)).to(dev)
+
+    def chunks(self):
+        """(first column, limit, matrix, exclusion mask) of the resident
+        matrix whole, or of each chunk of a streamed one."""
+        if self.stream is None:
+            yield 0, self.n_kmers, self.matrix, self.excl
+        else:
+            yield from self.stream.chunks()
+
+    def columns(self, cols):
+        """(W, len(cols)) uint32 numpy: the packed columns ``cols``."""
+        if self.stream is None:
+            idx = torch.as_tensor(cols, device=self.device)
+            return self.matrix.index_select(1, idx).cpu().numpy().view(
+                np.uint32)
+        return self.stream.source.columns(cols).T
 
     def rows(self, idx):
         """(masks, train masks, n_node, scale) of the nodes ``idx``."""
         sel = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
         return (self.masks[sel].contiguous(), self.train[sel].contiguous(),
                 self.n_node[sel].contiguous(), self.scale[sel].contiguous())
+
+    def select(self, idx, criterion, mode, **per_node):
+        """``cart_exact_select`` for the nodes ``idx`` over every chunk,
+        merged node-major and ascending by global column: (starts (N + 1,),
+        cols, left (C, T) or None, occ or None) int64 numpy."""
+        masks, train, nn, scale = self.rows(idx)
+        node_of, cols, lefts, occs = [], [], [], []
+        for lo, limit, matrix, excl in self.chunks():
+            starts, col, left, occ = cart_exact_select(
+                matrix, masks, train, nn, scale, criterion, limit, mode,
+                excl=excl, **per_node)
+            node_of.append(np.repeat(np.arange(len(idx)),
+                                     np.diff(starts.cpu().numpy())))
+            cols.append(col.cpu().numpy().astype(np.int64) + lo)
+            if mode == "gather":
+                lefts.append(left.cpu().numpy().astype(np.int64))
+                occs.append(occ.cpu().numpy().astype(np.int64))
+        node_of = np.concatenate(node_of)
+        order = np.argsort(node_of, kind="stable")  # chunks ascend
+        starts = np.concatenate(
+            [[0], np.cumsum(np.bincount(node_of, minlength=len(idx)))])
+        if mode != "gather":
+            return starts, np.concatenate(cols)[order], None, None
+        return (starts, np.concatenate(cols)[order],
+                np.concatenate(lefts, 1)[:, order],
+                np.concatenate(occs)[order])
 
 
 def _train_masks(bit_matrix, train_example_idx, w):
@@ -163,10 +256,14 @@ def cart_frontier_candidates(bit_matrix, node_example_sets, altered_priors,
     front = _Frontier(bit_matrix, masks, n_node, priors, totals,
                       _train_masks(bit_matrix, train_example_idx, w), excl)
 
-    # Pass 1: per-node float32 minima, the frontier sweep's own.
-    _, gmin = cart_frontier_scores(
-        front.matrix, front.masks, front.n_node, front.priors, front.totals,
-        crit, front.n_kmers, excl=front.excl)
+    # Pass 1: per-node float32 minima, the frontier sweep's own, reduced
+    # over the chunks of a streamed matrix.
+    gmin = None
+    for _, limit, matrix, chunk_excl in front.chunks():
+        _, g = cart_frontier_scores(
+            matrix, front.masks, front.n_node, front.priors, front.totals,
+            crit, limit, excl=chunk_excl)
+        gmin = g if gmin is None else torch.minimum(gmin, g)
     thresh = _thresh_from_gmin(gmin, float(c)).contiguous()
 
     lattice = np.prod(n_node.astype(np.int64) + 1, axis=1)
@@ -188,9 +285,20 @@ def _run_tuple_regime(out, t_idx, front, thresh, n_node, crit, classes,
                       defer_equiv):
     masks, train, nn, scale = front.rows(t_idx)
     sel = torch.as_tensor(t_idx, device=front.device)
-    occ_tab, col_tab, table_off = cart_exact_tuples(
-        front.matrix, masks, train, nn, scale, thresh[sel].contiguous(), crit,
-        front.n_kmers, excl=front.excl)
+    th = thresh[sel].contiguous()
+    occ_tab = col_tab = None
+    for lo, limit, matrix, excl in front.chunks():
+        occ, col, table_off = cart_exact_tuples(
+            matrix, masks, train, nn, scale, th, crit, limit, excl=excl)
+        if occ_tab is None:
+            occ_tab, col_tab = occ, col
+            continue
+        # The chunk's columns made global (the packed occurrence entry holds
+        # 0xFFFFFFFF - col in its low word), then merged: the largest
+        # occurrence, then the lowest column at it; the lowest column.
+        occ_tab = torch.maximum(occ_tab, torch.where(occ != 0, occ - lo, 0))
+        col_tab = torch.minimum(col_tab, torch.where(col != NO_COLUMN,
+                                                     col + lo, NO_COLUMN))
     # One download: the present tuples' (node, key, occmax, column at
     # occmax, lowest column).
     node_of, keys, occs, coccs, canys = torch.stack(
@@ -243,10 +351,7 @@ def _run_tuple_regime(out, t_idx, front, thresh, n_node, crit, classes,
     if winners:
         # The winners' packed columns in one gather: the tree then skips its
         # per-level column fetch for these nodes.
-        cols = torch.as_tensor([out[ni]["winner"] for ni in winners],
-                               device=front.device)
-        bits = front.matrix.index_select(1, cols).cpu().numpy().view(
-            np.uint32)
+        bits = front.columns([out[ni]["winner"] for ni in winners])
         for j, ni in enumerate(winners):
             out[ni]["winner_bits"] = bits[:, j].copy()
     if equiv_jobs:
@@ -261,29 +366,19 @@ def _resolve_equiv(front, jobs):
     occurrence (any occurrence where occmax is -1): the reference's
     equivalent-rule set."""
     idx = [ni for ni, _, _ in jobs]
-    masks, train, nn, scale = front.rows(idx)
     dev = front.device
     bitmap = torch.from_numpy(key_bitmap([tk for _, tk, _ in jobs])).to(dev)
     occmax = torch.tensor([om for _, _, om in jobs], dtype=torch.int32,
                           device=dev)
-    starts, cols, _, _ = cart_exact_select(
-        front.matrix, masks, train, nn, scale, "gini", front.n_kmers, "equiv",
-        occmax=occmax, bitmap=bitmap, excl=front.excl)
-    starts = starts.cpu().numpy()
-    cols = cols.cpu().numpy().astype(np.int64)
+    starts, cols, _, _ = front.select(idx, "gini", "equiv", occmax=occmax,
+                                      bitmap=bitmap)
     return [cols[starts[j]:starts[j + 1]] for j in range(len(jobs))]
 
 
 def _run_gather_regime(out, g_idx, front, thresh, crit, classes):
-    masks, train, nn, scale = front.rows(g_idx)
     sel = torch.as_tensor(g_idx, device=front.device)
-    starts, cols, left, occ = cart_exact_select(
-        front.matrix, masks, train, nn, scale, crit, front.n_kmers, "gather",
-        thresh=thresh[sel].contiguous(), excl=front.excl)
-    starts = starts.cpu().numpy()
-    cols = cols.cpu().numpy().astype(np.int64)
-    left = left.cpu().numpy().astype(np.int64)
-    occ = occ.cpu().numpy().astype(np.int64)
+    starts, cols, left, occ = front.select(
+        g_idx, crit, "gather", thresh=thresh[sel].contiguous())
     for j, ni in enumerate(g_idx):
         lo, hi = starts[j], starts[j + 1]
         if lo == hi:

@@ -22,6 +22,7 @@ from grm_tpu_torch.ops import cart_exact as ce
 from grm_tpu_torch.ops import cart_sweep as cs
 from grm_tpu_torch.ops import popcount as pc
 from grm_tpu_torch.ops import scm_sweep as sw
+from grm_tpu_torch.utils import pack_binary_bytes_to_ints
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke as smoke  # noqa: E402  (the pass-bitmap cases)
@@ -531,3 +532,78 @@ def test_ingest_merge_three_batches(cuda, k):
     genomes; 64 and 6): as built, with no valid row, and with every row
     valid."""
     smoke.merge_cases(cuda, np.random.RandomState(k), k, _record)
+
+
+def test_chunk_source_uploads(cuda):
+    """The chunk source's double-buffered pinned uploads (8 chunks, two
+    buffers, the current stream kept busy) against a plain upload of each
+    chunk, bit for bit; the hit-superblock upload; StreamingBitMatrix.
+    presence_counts on the card against its CPU run."""
+    smoke.stream_cases(cuda, np.random.RandomState(12), _record)
+
+
+def _streamed_pair(cuda, rng, n_genomes=342, n_kmers=40000):
+    dense = (rng.rand(n_genomes, n_kmers) > 0.5).astype(np.uint8)
+    labels = (rng.rand(n_genomes) > 0.5).astype(np.uint8)
+    for c, flips in ((17, 10), (9000, 30), (33333, 30)):
+        col = labels.copy()
+        col[rng.choice(n_genomes, flips, replace=False)] ^= 1
+        dense[:, c] = col
+    dense[:, 20001] = dense[:, 17]
+    packed = pack_binary_bytes_to_ints(dense, 32)
+    return (labels, pc.BitMatrix(packed, n_genomes, device=cuda),
+            pc.StreamingBitMatrix(packed, n_genomes, 8192, cuda))
+
+
+def test_streamed_exact_scm_engine_equals_resident(cuda):
+    """The streamed exact SCM engine on the card (5 chunks of 8192) gives
+    the resident engine's rules, tie sets and errors."""
+    from grm_tpu_torch.parallel.scm_exact import (ExactScmEngine,
+                                                  _make_risk_lookup)
+
+    rng = np.random.RandomState(4)
+    labels, resident, streamed = _streamed_pair(cuda, rng)
+    n, k = len(labels), resident.n_columns
+    fits = []
+    for model_type in ("conjunction", "disjunction"):
+        for p in (0.5, 1.0, 4.0):
+            pos = np.where(labels == 1)[0]
+            neg = np.where(labels == 0)[0]
+            if model_type == "disjunction":
+                pos, neg = neg, pos
+            fits.append({"pos_mask": resident.row_mask(pos[5:]),
+                         "neg_mask": resident.row_mask(neg[5:]),
+                         "test_pos_mask": resident.row_mask(pos[:5]),
+                         "test_neg_mask": resident.row_mask(neg[:5]),
+                         "p": p, "model_type": model_type,
+                         "risk_lookup": _make_risk_lookup(
+                             rng.rand(k), rng.rand(k), k)})
+    want = ExactScmEngine(resident.data, k).run_fits(fits, 5, True)
+    got = ExactScmEngine(streamed, k).run_fits(fits, 5, True)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
+    assert [[t.tolist() for t in f] for f in got[4]] == \
+        [[t.tolist() for t in f] for f in want[4]]
+    assert streamed.source.bytes_uploaded > 0
+
+
+def test_streamed_cart_candidates_equal_resident(cuda):
+    """The streamed exact CART engine's frontier payloads on the card equal
+    the resident engine's: tuple tables merged across chunks, the winners'
+    bits, the equivalence sets."""
+    from grm_tpu_torch.parallel.cart_exact import cart_frontier_candidates
+
+    rng = np.random.RandomState(7)
+    labels, resident, streamed = _streamed_pair(cuda, rng)
+    idx = np.arange(len(labels))
+    nodes = [{0: idx[labels == 0], 1: idx[labels == 1]},
+             {0: idx[labels == 0][:40], 1: idx[labels == 1][:50]}]
+    args = (nodes, {0: 0.5, 1: 0.5}, {0: 171.0, 1: 171.0}, "gini",
+            [idx, idx[:200]])
+    want = cart_frontier_candidates(resident, *args)
+    got = cart_frontier_candidates(streamed, *args)
+    for g, w in zip(got, want):
+        assert g["winner"] == w["winner"]
+        np.testing.assert_array_equal(g["winner_bits"], w["winner_bits"])
+        np.testing.assert_array_equal(g["equiv"], w["equiv"])
+    assert 17 in want[0]["equiv"] and 20001 in want[0]["equiv"]

@@ -232,17 +232,3 @@ def test_write_artifact_to_hdf5_reads_in_both_packages(tmp_path):
     jax_split(path, "sp", train_prop=0.7, random_seed=3, n_folds=3)
     got, want = _both(path, "device", **CV)
     assert got == want
-
-
-def test_bit_matrix_over_device_budget_names_the_roadmap_item(tmp_path,
-                                                              monkeypatch):
-    """Until StreamingBitMatrix is ported, a matrix above 60% of the
-    device's memory raises instead of streaming."""
-    from grm_tpu_torch.dataset import GrmDataset
-
-    dense, labels = _tied_dense(1)
-    path, _ = _artifact(tmp_path, dense, labels, "big", 1)
-    monkeypatch.setattr(GrmDataset, "_device_memory_budget",
-                        lambda self: 100)
-    with pytest.raises(MemoryError, match="StreamingBitMatrix.*ROADMAP"):
-        GrmDataset(path, device="cpu").bit_matrix()
