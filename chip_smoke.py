@@ -3,8 +3,9 @@
 holds each against its plain PyTorch version, checks the device engines
 against the host engines at reduced size, then drives ``learn scm`` at the
 published median scale through two engines, ``learn tree`` through
-three, and the device ingest (contigs -> packed matrix on the card ->
-``train_scm``) at 342 genomes of 4.4 Mbp.
+three, the device ingest (contigs -> packed matrix on the card ->
+``train_scm``) at 342 genomes of 4.4 Mbp, and dataset creation from the
+same genomes as FASTA files (``from_contigs`` -> split -> ``learn_SCM``).
 
     python3 chip_smoke.py [--seed N]
 
@@ -88,7 +89,14 @@ Phases (any failure exits non-zero and prints no result):
    matrix (each genome's ``sorted_kmers_np`` through the plain versions on
    the CPU, merged with numpy), and ``train_scm`` on it the rules, split
    and metrics of ``train_scm`` on a BitMatrix built on the host from the
-   same matrix.
+   same matrix. Then dataset creation from the same 40 genomes, as FASTA
+   files and as read directories (reads of 150 bases at 3x, half of each
+   genome's in a gzipped file): ``from_contigs`` and ``from_reads``
+   (abundance_min 2) into a MemoryArtifact on the card must equal the same
+   call on the CPU, array for array and attr for attr (``uuid`` and
+   ``created`` aside), at k = 15, 31 and 33, with and without the
+   singleton filter; and ``count_fasta(keep_counts=True)`` on the card the
+   CPU's k-mers and counts.
 5. The main paths at full scale: 342 genomes x 9,600,000 k-mers (the
    published median, BASELINE.md), 5-fold split, built in memory from
    --seed with the benchmark's recipe (a planted 3-marker conjunction plus
@@ -113,6 +121,21 @@ Phases (any failure exits non-zero and prints no result):
    host-to-device copies by kind (pinned or pageable: the chunk uploads
    must be pinned), their bytes, time and rate, and the share of their
    time during which a kernel ran.
+   Then ``ingest-device``: the batched build on the card of 342 genomes
+   of 4.4 Mbp from --seed (k = 31, batches of 32, the singleton filter)
+   and ``train_scm``, which must learn a planted marker. Then the ninth
+   path, ``create-contigs``: ``ingest-device``'s genomes written as FASTA
+   files of one contig with their labels as a metadata TSV (set-up), then
+   ``from_contigs`` into a MemoryArtifact on the card (each genome counted
+   by one ``kmer_canon`` launch and a sort, the union merged on the host;
+   k = 31, the singleton filter), ``split_with_proportion`` (5 folds) and
+   ``learn_SCM(engine="device")``. It must give ``ingest-device``'s union
+   and matrix (genome rows mapped by id: ``from_contigs`` orders genomes
+   by label), 342 ``kmer_canon`` launches, and learn the three planted
+   markers; each stage's wall is printed with the card's name and power
+   limit (FASTA encode, counting on the card with its transfers, host
+   merge, artifact write, split, learn), with the whole create's Mbp/s
+   and the host's peak RSS.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
@@ -152,7 +175,7 @@ Phases (any failure exits non-zero and prints no result):
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
-the sum of the eight paths' counts and ``launches_by_path`` gives each
+the sum of the nine paths' counts and ``launches_by_path`` gives each
 path's own. Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
@@ -190,6 +213,11 @@ INGEST_UNION = (8_500_000, 11_000_000)  # where the union must land
 INGEST_K, INGEST_BATCH = 31, 32
 INGEST_BUDGET = 1 << 24  # k_budget and batch_budget, as bench.py:181 sets them
 SMALL_INGEST = (40, 200_000)  # phase 4: genomes x bases, from FASTA files
+# Phase 4's dataset creation cases (tests/test_torch_cuda.py takes them
+# too): from_contigs and from_reads on SMALL_INGEST's genomes, reads of
+# CREATE_READ_LENGTH bases at CREATE_COVERAGE x cut from them.
+CREATE_CASE_KS = (15, 31, 33)
+CREATE_READ_LENGTH, CREATE_COVERAGE, CREATE_ABUNDANCE_MIN = 150, 3, 2
 # Phase 3's ingest kernel cases (tests/test_torch_cuda.py takes them too).
 INGEST_CASE_KS = (1, 9, 15, 16, 17, 30, 31, 32, 33, 64)
 INGEST_CASE_GENOMES = (1, 31, 32, 33, 64)
@@ -261,6 +289,8 @@ KERNELS = {
 # the compacted hit superblocks). Device ingest: the windows, the
 # batch columns, the union merge, the singleton filter (its column counts
 # inside its kernel), then train_scm's greedy steps (popcount_colsum).
+# Dataset creation: each genome's windows (counted on the card, merged on
+# the host), then learn_SCM's exact engine.
 PATH_KERNELS = {
     "device": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "device-argmax": ("scm_sweep_argmax", "popcount_colsum_pairs",
@@ -273,6 +303,8 @@ PATH_KERNELS = {
                              "cart_exact_select"),
     "ingest-device": ("kmer_canon", "build_columns", "merge_columns",
                       "compact_columns", "popcount_colsum"),
+    "create-contigs": ("kmer_canon", "scm_sweep_sbmax",
+                       "popcount_colsum_pairs"),
 }
 # The CUDA function each wrapper launches, as torch.profiler names it.
 KERNEL_FUNCTIONS = {
@@ -389,8 +421,8 @@ def ingest_genomes(n_genomes, length, n_snps, pool, seed, k=INGEST_K):
     site no pool site comes within k of, so that its k windows are the same
     in every genome that carries it.
 
-    Returns (int8 code arrays, labels, the canonical k-mer strings of each
-    marker's windows)."""
+    Returns (int8 code arrays, labels, {canonical k-mer string of a
+    marker's window: that marker's index})."""
     rng = np.random.RandomState(seed)
     backbone = rng.randint(0, 4, length).astype(np.int8)
     sites = rng.choice(np.arange(k, length - k), pool, replace=False)
@@ -425,14 +457,14 @@ def ingest_genomes(n_genomes, length, n_snps, pool, seed, k=INGEST_K):
         c[markers[carries[:, g]]] = malt[carries[:, g]]
         codes_list.append(c)
     comp = str.maketrans("ACGT", "TGCA")
-    marker_kmers = set()
-    for s, a in zip(markers, malt):
+    marker_kmers = {}
+    for i, (s, a) in enumerate(zip(markers, malt)):
         seq = backbone[s - k + 1:s + k].copy()
         seq[k - 1] = a
         text = "".join("ACGT"[b] for b in seq)
         for t in range(k):
             w = text[t:t + k]
-            marker_kmers.add(min(w, w.translate(comp)[::-1]))
+            marker_kmers[min(w, w.translate(comp)[::-1])] = i
     return codes_list, labels, marker_kmers
 
 
@@ -1870,20 +1902,30 @@ def time_exact_kernels(row, rng, matrix, device, exact_sizes, card):
             key="cart_exact_select" + (":equiv " + tag if tag else ""))
 
 
-def write_fasta(directory, codes_list):
-    """One FASTA file per genome, two contigs each (cut at a third), 80
-    bases a line. Returns (genome id, path) pairs."""
+def _text_lines(text, width):
+    """uint8 text -> bytes of lines of ``width`` characters, each ending in
+    a newline (the last one shorter)."""
+    full = len(text) // width
+    out = np.empty((full, width + 1), np.uint8)
+    out[:, :width] = text[:full * width].reshape(full, width)
+    out[:, width] = ord("\n")
+    tail = text[full * width:].tobytes()
+    return out.tobytes() + (tail + b"\n" if tail else b"")
+
+
+def write_fasta(directory, codes_list, cut=True):
+    """One FASTA file per genome, two contigs each (cut at a third; one
+    without ``cut``), 80 bases a line. Returns (genome id, path) pairs."""
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     specs = []
     for g, codes in enumerate(codes_list):
-        text = lut[codes].tobytes().decode()
-        cut = len(text) // 3
+        at = len(codes) // 3
+        contigs = (codes[:at], codes[at:]) if cut else (codes,)
         path = os.path.join(directory, "g%05d.fna" % g)
-        with open(path, "w") as f:
-            for i, contig in enumerate((text[:cut], text[cut:])):
-                f.write(">g%05d_c%d\n" % (g, i))
-                for lo in range(0, len(contig), 80):
-                    f.write(contig[lo:lo + 80] + "\n")
+        with open(path, "wb") as f:
+            for i, contig in enumerate(contigs):
+                f.write(b">g%05d_c%d\n" % (g, i))
+                f.write(_text_lines(lut[contig], 80))
         specs.append(("g%05d" % g, path))
     return specs
 
@@ -1997,6 +2039,301 @@ def check_ingest_small(device, seed, n_genomes=SMALL_INGEST[0],
     return out
 
 
+# -- dataset creation ---------------------------------------------------------
+
+def write_reads(directory, codes_list, seed, length=CREATE_READ_LENGTH,
+                coverage=CREATE_COVERAGE):
+    """One directory of FASTQ reads per genome: reads of ``length`` bases
+    cut at random from the genome (``coverage`` x its length), half in a
+    plain file and half in a gzipped one. Returns (genome id, directory)
+    pairs."""
+    import gzip
+
+    rng = np.random.RandomState(seed)
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    specs = []
+    for g, codes in enumerate(codes_list):
+        n = max(2, coverage * len(codes) // length)
+        starts = rng.randint(0, len(codes) - length + 1, n)
+        seqs = lut[codes[starts[:, None] + np.arange(length)]]
+        rec = np.empty((n, 10 + 2 * length + 4), np.uint8)
+        rec[:, :10] = np.frombuffer(b"".join(b"@r%07d\n" % i
+                                             for i in range(n)),
+                                    np.uint8).reshape(n, 10)
+        rec[:, 10:10 + length] = seqs
+        rec[:, 10 + length:13 + length] = np.frombuffer(b"\n+\n", np.uint8)
+        rec[:, 13 + length:13 + 2 * length] = ord("I")
+        rec[:, -1] = ord("\n")
+        rdir = os.path.join(directory, "r%05d" % g)
+        os.makedirs(rdir)
+        with open(os.path.join(rdir, "a.fastq"), "wb") as f:
+            f.write(rec[:n // 2].tobytes())
+        with gzip.open(os.path.join(rdir, "b.fastq.gz"), "wb",
+                       compresslevel=1) as f:
+            f.write(rec[n // 2:].tobytes())
+        specs.append(("g%05d" % g, rdir))
+    return specs
+
+
+def write_lists(directory, specs, labels, name):
+    """The genome list (``genome_id<TAB>path``) and the metadata TSV
+    (``genome_id<TAB>label``) of ``specs``. Returns their paths."""
+    paths = (os.path.join(directory, name + ".tsv"),
+             os.path.join(directory, name + "_meta.tsv"))
+    with open(paths[0], "w") as f:
+        f.writelines("%s\t%s\n" % spec for spec in specs)
+    with open(paths[1], "w") as f:
+        f.writelines("%s\t%d\n" % (gid, y)
+                     for (gid, _), y in zip(specs, labels))
+    return paths
+
+
+def artifact_arrays(mem):
+    """{name: array} of a MemoryArtifact's datasets and {name: value} of
+    its attrs and its datasets' attrs, ``uuid`` and ``created`` aside."""
+    arrays = {n: ds.data for n, ds in mem.items() if hasattr(ds, "data")}
+    attrs = {k: v for k, v in mem.attrs.items()
+             if k not in ("uuid", "created")}
+    for n, ds in mem.items():
+        attrs.update({"%s.%s" % (n, k): v for k, v in ds.attrs.items()})
+    return arrays, attrs
+
+
+def assert_same_artifact(got, want, what):
+    (ga, gt), (wa, wt) = artifact_arrays(got), artifact_arrays(want)
+    if gt != wt:
+        raise AssertionError("%s: attrs differ:\n%s\n%s" % (what, gt, wt))
+    if sorted(ga) != sorted(wa):
+        raise AssertionError("%s: datasets %s != %s" % (what, sorted(ga),
+                                                         sorted(wa)))
+    for name in wa:
+        if ga[name].dtype != wa[name].dtype or not np.array_equal(
+                ga[name], wa[name]):
+            raise AssertionError("%s: %s differs (%s %s against %s %s)"
+                                 % (what, name, ga[name].dtype,
+                                    ga[name].shape, wa[name].dtype,
+                                    wa[name].shape))
+
+
+def create_inputs(directory, seed, n_genomes=SMALL_INGEST[0],
+                  length=SMALL_INGEST[1]):
+    """Phase 4's creation inputs: ``check_ingest_small``'s genomes as FASTA
+    files and as read directories, each with its genome list and the
+    metadata TSV. Returns {"contigs": (list, metadata), "reads": (list,
+    metadata), "fasta": [(genome id, path)]}."""
+    scale = length / INGEST_LENGTH
+    codes_list, labels, _ = ingest_genomes(
+        n_genomes, length, max(1, round(INGEST_SNPS * scale)),
+        max(2, round(INGEST_POOL * scale)), seed)
+    fasta = write_fasta(directory, codes_list)
+    reads = write_reads(directory, codes_list, seed)
+    return {"contigs": write_lists(directory, fasta, labels, "contigs"),
+            "reads": write_lists(directory, reads, labels, "reads"),
+            "fasta": fasta}
+
+
+def create_case(device, inputs, mode, k, filter_singleton):
+    """One dataset creation case: ``from_contigs`` (``mode`` "contigs") or
+    ``from_reads`` (abundance_min CREATE_ABUNDANCE_MIN) into a
+    MemoryArtifact on ``device`` must equal the same call on the CPU,
+    array for array and attr for attr (``uuid`` and ``created`` aside).
+    Returns the k-mer count."""
+    from grm_tpu_torch.dataset import MemoryArtifact, from_contigs, from_reads
+
+    listing, meta = inputs[mode]
+    kw = dict(filter_singleton=filter_singleton,
+              phenotype_description="planted markers",
+              phenotype_metadata_path=meta)
+    if mode == "reads":
+        fn, kw["abundance_min"] = from_reads, CREATE_ABUNDANCE_MIN
+    else:
+        fn = from_contigs
+    got = fn(listing, MemoryArtifact(), k, device=device, **kw)
+    want = fn(listing, MemoryArtifact(), k, device="cpu", **kw)
+    assert_same_artifact(got, want, "from_%s(k=%d, filter_singleton=%s)"
+                         % (mode, k, filter_singleton))
+    return got["kmer_sequences"].shape[0]
+
+
+def count_case(device, inputs, k):
+    """``count_fasta(keep_counts=True)`` on ``device`` against the CPU on
+    the first three genomes: k-mers and counts equal. Returns the largest
+    count seen."""
+    from grm_tpu_torch.kmer.counter import count_fasta
+
+    top = 0
+    for gid, path in inputs["fasta"][:3]:
+        got = count_fasta(path, k, keep_counts=True, device=device)
+        want = count_fasta(path, k, keep_counts=True, device="cpu")
+        if not (np.array_equal(got.kmers, want.kmers)
+                and np.array_equal(got.counts, want.counts)):
+            raise AssertionError("count_fasta(%s, k=%d): %s != cpu"
+                                 % (gid, k, device))
+        top = max(top, int(got.counts.max(initial=0)))
+    return top
+
+
+def check_create_small(device, seed):
+    """Phase 4, dataset creation: every case of CREATE_CASE_KS x the
+    singleton filter x (contigs, reads) on the card equal to the CPU, and
+    count_fasta at each k. Returns a summary line."""
+    sizes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = create_inputs(tmp, seed)
+        for k in CREATE_CASE_KS:
+            top = count_case(device, inputs, k)
+            for mode in ("contigs", "reads"):
+                for fs in (False, True):
+                    sizes.append("%s k=%d%s: %d" % (
+                        mode, k, " filtered" if fs else "",
+                        create_case(device, inputs, mode, k, fs)))
+            sizes.append("count_fasta k=%d: largest count %d" % (k, top))
+    return "; ".join(sizes)
+
+
+def device_matrix_rows(m32, rows):
+    """(len(rows), K) bool presence of the genome rows ``rows`` of a packed
+    (W, K) int32 tensor (genome g at word g // 32, bit 31 - g % 32)."""
+    import torch
+
+    rows = torch.as_tensor(rows, dtype=torch.int64)
+    words = m32.index_select(0, (rows // 32).to(m32.device))
+    shifts = (31 - rows % 32).to(m32.device)[:, None]
+    return ((words.to(torch.int64) >> shifts) & 1).bool()
+
+
+def count_profile(specs, device, card):
+    """Where the card's per-genome counting goes: ``count_fasta`` of
+    ``specs`` under torch.profiler, its wall against the device's busy
+    time, the copies and kernels by name (outside any path's launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from grm_tpu_torch.kmer.counter import count_fasta
+
+    count_fasta(specs[0][1], INGEST_K, device=device)  # warm
+    torch.cuda.synchronize()
+    timings = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for gid, path in specs:
+            count_fasta(path, INGEST_K, genome_id=gid, device=device,
+                        timings=timings)
+        wall = time.time() - t0
+    rows = sorted(((_device_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and _device_us(e) > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    log("    counting profile (%s), %d genomes: wall %.3f s (profiled; "
+        "encode %.3f s, count %.3f s), device time %.2f ms (%.1f%% of the "
+        "count wall); by kernel:" % (card, len(specs), wall,
+                                     timings["encode"], timings["count"],
+                                     busy, 100.0 * busy / 1e3
+                                     / timings["count"]))
+    for us, key, count in rows[:8]:
+        log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
+
+
+def run_create(device, seed, paths, ingest, card):
+    """Phase 5, the ``create-contigs`` path: ``ingest-device``'s genomes
+    as FASTA files of one contig (as ingest-device counts them) with their
+    labels as a metadata TSV (set-up), then
+    ``from_contigs`` into a MemoryArtifact on the card (k = 31, the
+    singleton filter), ``split_with_proportion`` (5 folds) and
+    ``learn_SCM(engine="device")``. Its launches go into ``paths``. Fails
+    unless kmer_canon ran once a genome, the union and the matrix (genome
+    rows mapped by id) equal ``ingest-device``'s and the three planted
+    markers are learnt."""
+    import resource
+
+    import torch
+
+    from grm_tpu_torch.dataset import (MemoryArtifact, from_contigs,
+                                       split_with_proportion)
+    from grm_tpu_torch.ops import _build
+    from grm_tpu_torch.ops.kmer import decode_kmers_bytes
+    from grm_tpu_torch.ops.popcount import u64_matrix_to_u32
+
+    codes_list, labels, marker_kmers, union, matrix = ingest
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        specs = write_fasta(tmp, codes_list, cut=False)  # as ingest-device
+        listing, meta = write_lists(tmp, specs, labels, "contigs")
+        bytes_on_disk = sum(os.path.getsize(p) for _, p in specs)
+        log("    create-contigs inputs: %d FASTA files, %d bytes, written in "
+            "%.1f s (set-up)" % (len(specs), bytes_on_disk, time.time() - t0))
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        timings = {}
+        t0 = time.time()
+        mem = from_contigs(listing, MemoryArtifact(), INGEST_K,
+                           filter_singleton=True,
+                           phenotype_description="planted markers",
+                           phenotype_metadata_path=meta, device=device,
+                           timings=timings)
+        t_create = time.time() - t0
+        t0 = time.time()
+        split_with_proportion(mem, "sp", train_prop=0.67, random_seed=42,
+                              n_folds=N_FOLDS, device=device)
+        torch.cuda.synchronize()
+        t_split = time.time() - t0
+        t0 = time.time()
+        fp = fingerprint(learn(mem, "device", device))
+        torch.cuda.synchronize()
+        t_learn = time.time() - t0
+        paths["create-contigs"] = dict(_build.launches)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        count_profile(specs[:8], device, card)
+    n_genomes = len(codes_list)
+    mbp = sum(len(c) for c in codes_list) / 1e6
+    n_kmers = mem["kmer_sequences"].shape[0]
+    log("    create-contigs (%s): from_contigs %.3f s (%.1f Mbp/s): FASTA "
+        "encode %.3f s, counting on the card %.3f s (transfers included), "
+        "host merge %.3f s, artifact write %.3f s; split %.3f s; learn_SCM"
+        "(device) %.3f s; %d k-mers after the singleton filter; host peak "
+        "RSS %.2f GB (%.2f GB before the path); launches %s"
+        % (card, t_create, mbp / t_create, timings.get("encode", 0.0),
+           timings.get("count", 0.0), timings.get("merge", 0.0),
+           timings.get("write", 0.0), t_split, t_learn, n_kmers, rss / 1e6,
+           rss0 / 1e6, paths["create-contigs"]))
+    log("    create-contigs: hp %s, cv score %.5f, rules %s, train risk "
+        "%.4f, test risk %.4f" % (fp["hp"], fp["score"], fp["rules"],
+                                  fp["train"]["risk"][0],
+                                  fp["test"]["risk"][0]))
+    if paths["create-contigs"]["kmer_canon"] != n_genomes:
+        raise AssertionError("create-contigs: %d kmer_canon launches for %d "
+                             "genomes" % (paths["create-contigs"]
+                                          ["kmer_canon"], n_genomes))
+    missing = [k for k in PATH_KERNELS["create-contigs"]
+               if paths["create-contigs"][k] == 0]
+    if missing:
+        raise AssertionError("path 'create-contigs' launched no %s" % missing)
+    if n_kmers != len(union) or not np.array_equal(
+            mem["kmer_sequences"].data, decode_kmers_bytes(union, INGEST_K)):
+        raise AssertionError("create-contigs: union of %d k-mers != "
+                             "ingest-device's %d" % (n_kmers, len(union)))
+    order = [int(_s(g)[1:]) for g in mem["genome_identifiers"].data]
+    m32 = torch.from_numpy(u64_matrix_to_u32(mem["kmer_matrix"].data).view(
+        np.int32)).to(device)
+    for lo in range(0, n_genomes, 32):
+        rows = range(lo, min(lo + 32, n_genomes))
+        if not torch.equal(device_matrix_rows(m32, list(rows)),
+                           device_matrix_rows(matrix, [order[r]
+                                                       for r in rows])):
+            raise AssertionError("create-contigs: matrix rows %d-%d != "
+                                 "ingest-device's rows of the same genomes"
+                                 % (rows[0], rows[-1]))
+    del m32
+    hit = {marker_kmers[seq] for seq, _ in fp["rules"] if seq in marker_kmers}
+    if hit != {0, 1, 2}:
+        raise AssertionError("create-contigs learned markers %s of the three"
+                             ": %s" % (sorted(hit), fp["rules"]))
+    return fp
+
+
 def ingest_path(codes_list, labels, device):
     """Phase 5's ``ingest-device`` path: the batched build from codes
     (bench.py:181), then ``train_scm``. Returns (the DeviceDataset, the
@@ -2025,8 +2362,10 @@ def ingest_path(codes_list, labels, device):
 def run_ingest(device, seed, paths):
     """Phase 5, the ``ingest-device`` path at the published median: its
     launches go into ``paths``. Fails unless every kernel of the path ran
-    and a rule is a planted marker's k-mer. Returns the codes (phase 6
-    times the kernels on them)."""
+    and a rule is a planted marker's k-mer. Returns (the codes, the labels,
+    the markers' k-mers, the union on the host, the (W, U) matrix on the
+    card): ``create-contigs`` runs on them, and phase 6 times the kernels
+    on the codes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2067,6 +2406,8 @@ def run_ingest(device, seed, paths):
     if missing:
         raise AssertionError("path 'ingest-device' launched no %s" % missing)
     want = (ds.kmer_count, rules)
+    union = ds.dm.union_kmers_host()
+    matrix = ds.dm.matrix[:, :ds.kmer_count].clone()
     del ds, res
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2077,9 +2418,10 @@ def run_ingest(device, seed, paths):
     del ds, res
     rows = [(_device_us(e), e.key, e.count) for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    ingest = (codes_list, labels, marker_kmers, union, matrix)
     if not rows:
         log("    device time by kernel: not measured (no device events)")
-        return codes_list
+        return ingest
     total = sum(r[0] for r in rows) / 1e3
     sort_ms = sum(r[0] for r in rows if "sort" in r[1].lower()) / 1e3
     log("    device time over ingest-device: %.2f ms = %.1f%% busy of the "
@@ -2091,7 +2433,7 @@ def run_ingest(device, seed, paths):
     for i, (us, key, count) in enumerate(sorted(rows, reverse=True)):
         if i < 10 or any(_is_function(key, f) for f in hand):
             log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
-    return codes_list
+    return ingest
 
 
 def time_ingest_kernels(codes_list, device, paths, card):
@@ -2415,6 +2757,11 @@ def run(seed):
             "host oracle, train_scm == on a host-built BitMatrix; %s"
             % (SMALL_INGEST + (line,)))
     log("    ingest at reduced size checked in %.1f s" % (time.time() - t0))
+    t0 = time.time()
+    line = check_create_small(device, seed)
+    log("    from_contigs / from_reads into memory, %dx%d: %s == cpu, array "
+        "for array and attr for attr; count_fasta == cpu; %s; in %.1f s"
+        % (SMALL_INGEST + (device, line, time.time() - t0)))
 
     # 5. the main paths at full scale
     t0 = time.time()
@@ -2581,8 +2928,12 @@ def run(seed):
                              fingerprints[path])
         transfer_summary(prof, path, watches[path].uploaded())
 
-    # The device ingest path, on its own data.
-    codes_list = run_ingest(device, seed, paths)
+    # The device ingest path, on its own data; then dataset creation from
+    # the same genomes as FASTA files, held to its union and matrix.
+    ingest = run_ingest(device, seed, paths)
+    run_create(device, seed, paths, ingest, smi)
+    codes_list = ingest[0]
+    del ingest
 
     # 6. kernel times at the main paths' shapes
     log("[6] the card's measured rates, then kernel times at the main "

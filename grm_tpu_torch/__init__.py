@@ -8,9 +8,14 @@ unless the caller passes ``device="cpu"``, where every hand-written kernel
 
 - ``grm_tpu_torch.ops``       the CUDA kernels and their wrappers: masked
                               popcount column sums, the SCM utility sweep,
-                              the CART frontier sweep.
-- ``grm_tpu_torch.dataset``   the HDF5 artifact reader (or an in-memory
-                              artifact), the array writer, splits.
+                              the CART frontier sweep, the k-mer windows
+                              and the device ingest's matrix build.
+- ``grm_tpu_torch.kmer``      host ingest: per-genome k-mer counting (on
+                              the card) and the union merge (host C++,
+                              ``grm_tpu_torch.native``).
+- ``grm_tpu_torch.dataset``   the artifact (an HDF5 file or in memory):
+                              creation from contigs, reads or a TSV, the
+                              reader, splits.
 - ``grm_tpu_torch.learning``  SCM and CART learners, models, metrics,
                               bounds and the ``learn_SCM`` / ``learn_CART``
                               experiments.

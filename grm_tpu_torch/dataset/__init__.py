@@ -1,3 +1,9 @@
 from .artifact import GrmDataset, MemoryArtifact  # noqa: F401
-from .create import from_numpy_artifact, write_artifact  # noqa: F401
-from .split import split_with_proportion  # noqa: F401
+from .create import (  # noqa: F401
+    from_contigs,
+    from_numpy_artifact,
+    from_reads,
+    from_tsv,
+    write_artifact,
+)
+from .split import split_with_ids, split_with_proportion  # noqa: F401

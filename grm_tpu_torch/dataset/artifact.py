@@ -122,6 +122,21 @@ class _Split:
         else:
             self.folds = []
 
+    def __str__(self):
+        return (
+            "%s   Train genomes: %d (%.3f)   Test genomes: %d (%.3f)   "
+            "Folds: %d   Random Seed: %d"
+            % (
+                self.name,
+                len(self.train_genome_idx),
+                self.train_proportion,
+                len(self.test_genome_idx),
+                self.test_proportion,
+                len(self.folds),
+                self.random_seed,
+            )
+        )
+
 
 class GrmDataset:
     """Read-mostly accessor over an artifact: an HDF5 path or a
@@ -165,6 +180,10 @@ class GrmDataset:
         return self._attr("uuid")
 
     @property
+    def compression(self):
+        return self._attr("compression")
+
+    @property
     def kmer_filter(self):
         return self._attr("filter", "nothing")
 
@@ -175,6 +194,10 @@ class GrmDataset:
     @property
     def genome_source_type(self):
         return self._attr("genome_source_type")
+
+    @property
+    def genome_source(self):
+        return self._attr("genomic_data")
 
     # -- datasets -----------------------------------------------------------
     @property

@@ -1,7 +1,7 @@
-"""Train/test/fold splits with per-k-mer risk precomputation (the port of
-``split_with_proportion`` from ``grm_tpu/dataset/split.py``).
+"""Train/test/fold splits with per-k-mer risk precomputation (port of
+``grm_tpu/dataset/split.py``: ``split_with_proportion``, ``split_with_ids``).
 
-Mirrors the reference's ``split.py:86-256`` semantics bit-for-bit:
+Mirrors the reference's ``split.py:31-256`` semantics bit-for-bit:
 
 - ``np.random.RandomState(seed)`` drives the genome shuffle and then the
   fold-assignment shuffle, in that order;
@@ -28,7 +28,7 @@ import numpy as np
 from .artifact import GrmDataset
 from ..utils import minimum_uint_size
 
-__all__ = ["split_with_proportion"]
+__all__ = ["split_with_ids", "split_with_proportion"]
 
 
 def _callbacks(warning_callback, error_callback, progress_callback):
@@ -63,6 +63,40 @@ def split_with_proportion(input, split_name, train_prop, random_seed, n_folds=0,
     random_generator.shuffle(idx)
     train_idx = idx[:n_train]
     test_idx = idx[n_train:]
+
+    _split(dataset, split_name, random_generator, random_seed, train_idx,
+           test_idx, warning_callback, error_callback, progress_callback, n_folds)
+
+
+def split_with_ids(input, split_name, train_ids_file, test_ids_file,
+                   random_seed, n_folds=0, warning_callback=None,
+                   error_callback=None, progress_callback=None, device=None):
+    """Train/test split from explicit genome id files (split.py:31-83);
+    ``input`` and ``device`` as in :func:`split_with_proportion`."""
+    warning_callback, error_callback, progress_callback = _callbacks(
+        warning_callback, error_callback, progress_callback
+    )
+    random_generator = np.random.RandomState(random_seed)
+    dataset = GrmDataset(input, device=device)
+    idx_by_genome_id = {g: i for i, g in enumerate(dataset.genome_identifiers)}
+
+    def _parse_ids(ids_file, learning_step):
+        with open(ids_file) as f:
+            ids = [l.strip() for l in f.read().split("\n") if l.strip()]
+        missing = [i for i in ids if i not in idx_by_genome_id]
+        if missing:
+            error_callback(
+                Exception(
+                    "The %s genome identifiers contain IDs that are not in the "
+                    "dataset: %s" % (learning_step, ", ".join(missing))
+                )
+            )
+        return ids
+
+    train_ids = _parse_ids(train_ids_file, "training")
+    test_ids = _parse_ids(test_ids_file, "testing")
+    train_idx = np.array([idx_by_genome_id[i] for i in train_ids])
+    test_idx = np.array([idx_by_genome_id[i] for i in test_ids])
 
     _split(dataset, split_name, random_generator, random_seed, train_idx,
            test_idx, warning_callback, error_callback, progress_callback, n_folds)

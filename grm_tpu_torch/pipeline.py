@@ -1,18 +1,23 @@
-"""In-memory end-to-end pipeline: contigs -> matrix on the card -> split ->
-SCM model, in one process and with no artifact in between.
+"""In-memory end-to-end pipeline: contigs -> matrix -> split -> SCM model,
+in one process and with no artifact in between.
 
-Port of the device half of ``grm_tpu/pipeline.py``:
-:meth:`InMemoryDataset.from_contigs_device` builds the packed presence
-matrix on the card (:mod:`grm_tpu_torch.parallel.device_build`) and
-returns a :class:`DeviceDataset`, whose matrix never leaves the card: only
-the model's few rule columns and k-mers come back. :func:`train_scm` fits
-SCM on it through the argmax engine's full-train fit
-(:func:`grm_tpu_torch.parallel.mesh.scm_fit_batch_device`, one
-``popcount_colsum`` launch a greedy step).
+Port of ``grm_tpu/pipeline.py``. Two ingests:
 
-Host ingest (``InMemoryDataset.from_contigs`` and the ``KmerMatrix`` it
-wraps) is not ported yet (ROADMAP.md, Queue 1 item 12), nor are device
-meshes (item 11).
+- :meth:`InMemoryDataset.from_contigs` (host ingest): each genome's k-mers
+  counted on the card (:func:`grm_tpu_torch.kmer.counter.count_fasta`),
+  the union merged on the host into a
+  :class:`~grm_tpu_torch.kmer.matrix.KmerMatrix`, which the
+  :class:`InMemoryDataset` uploads as a ``BitMatrix`` when it is first
+  asked for one;
+- :meth:`InMemoryDataset.from_contigs_device` builds the packed presence
+  matrix on the card (:mod:`grm_tpu_torch.parallel.device_build`) and
+  returns a :class:`DeviceDataset`, whose matrix never leaves the card:
+  only the model's few rule columns and k-mers come back.
+
+:func:`train_scm` fits SCM on either through the argmax engine's
+full-train fit (:func:`grm_tpu_torch.parallel.mesh.scm_fit_batch_device`,
+one ``popcount_colsum`` launch a greedy step). Device meshes are not
+ported yet (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -23,10 +28,13 @@ from math import ceil
 import numpy as np
 import torch
 
+from .device import resolve_device
+from .kmer.counter import count_fasta
+from .kmer.matrix import KmerMatrix, build_presence_matrix
 from .learning.metrics import get_binary_metrics
 from .learning.models import ConjunctionModel, DisjunctionModel, KmerRule
 from .ops.kmer import decode_kmers, encode_contigs
-from .ops.popcount import masks_to_tensor
+from .ops.popcount import BitMatrix, masks_to_tensor, u64_matrix_to_u32
 from .parallel.device_build import (build_matrix_device,
                                     build_matrix_device_batched)
 from .parallel.mesh import scm_fit_batch_device
@@ -35,26 +43,41 @@ from .utils import fasta_to_sequences, unpack_binary_bytes_from_ints
 
 __all__ = ["InMemoryDataset", "DeviceDataset", "train_scm", "PipelineResult"]
 
-HOST_INGEST_MESSAGE = (
-    "host ingest (InMemoryDataset.from_contigs and its KmerMatrix) is not "
-    "ported yet (ROADMAP.md, Queue 1 item 12); use "
-    "InMemoryDataset.from_contigs_device")
 MESH_MESSAGE = (
     "train_scm over a device mesh is not ported yet (ROADMAP.md, Queue 1 "
     "item 11: multi-device paths); pass mesh=None")
 
 
 class InMemoryDataset:
-    """A dataset built in memory from contigs. Only the device ingest,
-    :meth:`from_contigs_device`, is ported."""
+    """A :class:`KmerMatrix` + labels exposing the surface the learners
+    need. ``device`` (default ``"cuda"``) holds the bit matrix."""
 
-    def __init__(self, km, labels_by_genome_id, sharding=None):
-        raise NotImplementedError(HOST_INGEST_MESSAGE)
+    def __init__(self, km: KmerMatrix, labels_by_genome_id, sharding=None,
+                 device=None):
+        if sharding is not None:
+            raise NotImplementedError(MESH_MESSAGE)
+        self.device = resolve_device(device)
+        self.km = km
+        self.genome_count = km.n_genomes
+        self.kmer_count = km.n_kmers
+        self.labels = np.array(
+            [int(labels_by_genome_id[g]) for g in km.genome_ids],
+            dtype=np.uint8)
+        self._bm = None
+        self._dense = None
 
     @classmethod
     def from_contigs(cls, genome_specs, labels_by_genome_id, k,
-                     filter_singleton=False, engine="auto", sharding=None):
-        raise NotImplementedError(HOST_INGEST_MESSAGE)
+                     filter_singleton=False, sharding=None, device=None):
+        """Host ingest: per-genome counting on the card + the host union
+        merge. ``genome_specs``: (genome id, FASTA path) pairs."""
+        if sharding is not None:
+            raise NotImplementedError(MESH_MESSAGE)
+        dev = resolve_device(device)
+        gks = [count_fasta(path, k, genome_id=gid, device=dev)
+               for gid, path in genome_specs]
+        km = build_presence_matrix(gks, filter_singleton=filter_singleton)
+        return cls(km, labels_by_genome_id, device=dev)
 
     @classmethod
     def from_contigs_device(cls, genome_specs, labels_by_genome_id, k,
@@ -80,6 +103,25 @@ class InMemoryDataset:
                 codes_list, k, genome_ids=ids, k_budget=k_budget,
                 filter_singleton=filter_singleton, device=device)
         return DeviceDataset(dm, labels_by_genome_id)
+
+    def bit_matrix(self, sharding=None):
+        if sharding is not None:
+            raise NotImplementedError(MESH_MESSAGE)
+        if self._bm is None:
+            self._bm = BitMatrix(u64_matrix_to_u32(self.km.matrix),
+                                 self.km.n_genomes, device=self.device)
+        return self._bm
+
+    def get_matrix_columns(self, columns):
+        if self._dense is None:
+            self._dense = self.km.dense()
+        columns = np.asarray(columns, dtype=np.int64)
+        base = np.where(columns >= self.kmer_count, columns - self.kmer_count,
+                        columns)
+        out = self._dense[:, base].copy()
+        inv = columns >= self.kmer_count
+        out[:, inv] = 1 - out[:, inv]
+        return out
 
 
 class DeviceDataset:

@@ -1,14 +1,15 @@
 """Host-side utilities: bit packing, dtype helpers, blacklist parsing.
 
-The port's own copy of the parts of ``grm_tpu/utils.py`` that the SCM path
-needs. Contracts mirror the reference (``bin/kover/core/kover/utils.py``):
+The port's own copy of the parts of ``grm_tpu/utils.py`` that the learners
+and the ingest need. Contracts mirror the reference
+(``bin/kover/core/kover/utils.py``):
 
 - MSB-first packing of a binary byte matrix into uint32/uint64 words, rows
   of ``pack_size`` examples per word (utils.py:133-156) and its inverse
   (utils.py:159-187);
 - minimum uint dtype selection (utils.py:117-130);
 - per-word row masks (learning/common/rules.py:210-222);
-- FASTA contig reading (utils.py:57-75);
+- FASTA contig reading, gzipped or not (utils.py:57-75);
 - k-mer blacklist parsing (utils.py:189-213).
 """
 
@@ -105,13 +106,19 @@ def build_row_mask(example_idx, n_examples, mask_n_bits):
     return masks.astype(dtype)
 
 
+def _open_maybe_gzip(path, mode="rt"):
+    """``open``, or ``gzip.open`` for a path ending in ``.gz``."""
+    if str(path).endswith(".gz"):
+        return _gzip.open(path, mode)
+    return open(path, mode)
+
+
 def fasta_to_sequences(path):
     """Upper-cased contig sequences of a (optionally gzipped) FASTA file:
     contigs are concatenated across line breaks and headers discarded."""
-    opener = _gzip.open if str(path).endswith(".gz") else open
     contigs = []
     buffer = None
-    with opener(path, "rt") as f:
+    with _open_maybe_gzip(path) as f:
         for line in f:
             if line.startswith(">"):
                 if buffer is not None:

@@ -534,6 +534,29 @@ def test_ingest_merge_three_batches(cuda, k):
     smoke.merge_cases(cuda, np.random.RandomState(k), k, _record)
 
 
+@pytest.fixture(scope="module")
+def create_inputs(tmp_path_factory):
+    """Phase 4's creation inputs: its 40 genomes of 200 kbp as FASTA
+    files and as read directories, with their lists and metadata."""
+    return smoke.create_inputs(str(tmp_path_factory.mktemp("create")), 0)
+
+
+@pytest.mark.parametrize("filter_singleton", [False, True])
+@pytest.mark.parametrize("mode", ["contigs", "reads"])
+@pytest.mark.parametrize("k", smoke.CREATE_CASE_KS)
+def test_create_on_the_card(cuda, create_inputs, k, mode, filter_singleton):
+    """from_contigs / from_reads into a MemoryArtifact on the card equal
+    the same call on the CPU, array for array and attr for attr."""
+    assert smoke.create_case(cuda, create_inputs, mode, k,
+                             filter_singleton) > 0
+
+
+@pytest.mark.parametrize("k", smoke.CREATE_CASE_KS)
+def test_count_fasta_on_the_card(cuda, create_inputs, k):
+    """count_fasta(keep_counts=True) on the card equals the CPU's."""
+    assert smoke.count_case(cuda, create_inputs, k) >= 1
+
+
 def test_chunk_source_uploads(cuda):
     """The chunk source's double-buffered pinned uploads (8 chunks, two
     buffers, the current stream kept busy) against a plain upload of each

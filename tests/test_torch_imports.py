@@ -1,6 +1,8 @@
 """grm_tpu_torch imports neither JAX nor any grm_tpu module (nor h5py or
-pandas, which the GPU machine may lack), and its entry points default to
-CUDA and raise without it. Runs in a fresh interpreter, because this test
+pandas, which the GPU machine may lack: only the functions that write a
+file or read a TSV import them), and its entry points default to CUDA and
+raise without it, the k-mer counter, dataset creation and the ``dataset
+create`` command included. Runs in a fresh interpreter, because this test
 process has JAX loaded (tests/conftest.py)."""
 
 import os
@@ -34,6 +36,9 @@ from grm_tpu_torch.ops.popcount import BitMatrix
 from grm_tpu_torch.parallel.device_build import (
     build_matrix_device, build_matrix_device_batched)
 from grm_tpu_torch.pipeline import InMemoryDataset
+from grm_tpu_torch.kmer.counter import count_fasta
+from grm_tpu_torch.dataset import MemoryArtifact, from_contigs
+from grm_tpu_torch.cli import main as cli_main
 
 calls = [
     lambda: resolve_device(),
@@ -49,6 +54,11 @@ calls = [
     lambda: build_matrix_device([np.zeros(40, np.int8)], 9),
     lambda: build_matrix_device_batched([np.zeros(40, np.int8)], 9),
     lambda: InMemoryDataset.from_contigs_device([], {}, 9),
+    lambda: InMemoryDataset.from_contigs([], {}, 9),
+    lambda: count_fasta("unused.fna", 9),
+    lambda: from_contigs("unused.tsv", MemoryArtifact(), 9),
+    lambda: cli_main(["dataset", "create", "from-contigs", "--genomic-data",
+                      "unused.tsv", "--output", "unused.h5"]),
 ]
 for call in calls:
     try:
@@ -62,7 +72,9 @@ for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
                "ops.cart_exact", "parallel.cart_device",
                "parallel.cart_exact", "parallel.cart_forest",
                "learning.experiments.cart_experiment", "ops.kmer",
-               "ops.device_build", "parallel.device_build", "pipeline"):
+               "ops.device_build", "parallel.device_build", "pipeline",
+               "hostmem", "native.bindings", "kmer.counter", "kmer.matrix",
+               "dataset.create", "dataset.split"):
     assert "grm_tpu_torch." + module in names, module
 print("imported", len(names))
 '''
@@ -75,4 +87,4 @@ def test_port_imports_no_jax_and_requires_cuda():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 32  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 39  # every module was imported

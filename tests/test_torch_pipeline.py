@@ -67,15 +67,52 @@ def test_from_contigs_device_then_train_scm(fasta, genome_batch,
 
 
 def test_mesh_and_host_ingest_raise(fasta):
+    """A device mesh (ROADMAP item 11) raises wherever it is asked for; the
+    host ingest (item 12's first half) is ported and raises no more."""
     specs, labels = fasta
     ds = tp.InMemoryDataset.from_contigs_device(specs, labels, 15,
                                                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tp.train_scm(ds, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tp.InMemoryDataset.from_contigs(specs, labels, 15)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tp.InMemoryDataset(None, labels)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tp.InMemoryDataset.from_contigs(specs, labels, 15, sharding=object(),
+                                        device="cpu")
+    host = tp.InMemoryDataset.from_contigs(specs, labels, 15, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tp.InMemoryDataset(host.km, labels, sharding=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        host.bit_matrix(sharding=object())
+
+
+@pytest.mark.parametrize("k,filter_singleton",
+                         [(15, False), (15, True), (31, True)])
+def test_from_contigs_then_train_scm(fasta, k, filter_singleton):
+    """Host ingest (counting on the card's plain versions, the union merged
+    on the host) + train_scm against grm_tpu's."""
+    specs, labels = fasta
+    want = jp.InMemoryDataset.from_contigs(specs, labels, k,
+                                           filter_singleton=filter_singleton)
+    got = tp.InMemoryDataset.from_contigs(specs, labels, k,
+                                          filter_singleton=filter_singleton,
+                                          device="cpu")
+    assert isinstance(got, tp.InMemoryDataset)
+    assert (got.genome_count, got.kmer_count) == (want.genome_count,
+                                                  want.kmer_count)
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_array_equal(got.km.kmers, want.km.kmers)
+    np.testing.assert_array_equal(got.km.matrix, want.km.matrix)
+    assert got.km.genome_ids == want.km.genome_ids
+    cols = [0, got.kmer_count - 1, got.kmer_count, 2 * got.kmer_count - 1]
+    np.testing.assert_array_equal(got.get_matrix_columns(cols),
+                                  want.get_matrix_columns(cols))
+    for model_type, p, seed in (("conjunction", 1.0, 3),
+                                ("disjunction", 0.5, 7)):
+        r_want = jp.train_scm(want, model_type=model_type, p=p,
+                              max_rules=4, random_seed=seed)
+        r_got = tp.train_scm(got, model_type=model_type, p=p, max_rules=4,
+                             random_seed=seed)
+        assert _result(r_got) == _result(r_want)
+    assert r_got.rules  # the marker is learned
 
 
 def test_from_contigs_device_needs_cuda_by_default(fasta):
