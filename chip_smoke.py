@@ -5,7 +5,10 @@ against the host engines at reduced size, then drives ``learn scm`` at the
 published median scale through two engines, ``learn tree`` through
 three, the device ingest (contigs -> packed matrix on the card ->
 ``train_scm``) at 342 genomes of 4.4 Mbp, and dataset creation from the
-same genomes as FASTA files (``from_contigs`` -> split -> ``learn_SCM``).
+same genomes as FASTA files (``from_contigs`` -> split -> ``learn_SCM``),
+each loading path's matrix split on the card (``deinterleave_u64``) and
+timed apart; then ``collect amr`` and the results site through the
+port's CLI.
 
     python3 chip_smoke.py [--seed N]
 
@@ -66,6 +69,15 @@ Phases (any failure exits non-zero and prints no result):
    against a plain upload of each chunk, bit for bit, popcount_colsum on
    each chunk, the upload of hit superblocks, and
    StreamingBitMatrix.presence_counts against its run on the CPU.
+   The artifact's matrix split (deinterleave_u64), bit for bit: the chunked
+   load through the pinned staging ring against the host split and the
+   plain version on the card, one launch a chunk, at an odd W64 (342
+   genomes), 96 and 352 genomes (32 x odd), a ragged last chunk,
+   one-column chunks, widths that are no multiple of 4, 5022 genomes, no
+   k-mer and the default chunk width (its peak device memory under the
+   matrix plus three chunks); BitMatrix.from_u64 on the card against the
+   CPU's; the wrapper at an odd column offset; a load behind a busy
+   stream.
 4. Correctness at reduced size: a 342 x 200,000 in-memory artifact with a
    5-fold split; ``learn_SCM(engine="device")`` must give the host
    engine's fingerprint (hyperparameters, score, rules, tie sets,
@@ -112,15 +124,30 @@ Phases (any failure exits non-zero and prints no result):
    ``learn_CART`` with engine "device" again, the budget at 512 MiB so
    that the 422 MB matrix streams from pinned host memory in the default
    chunks of 2^21 columns (5, the last ragged); each must give its
-   resident path's fingerprint. Each path
+   resident path's fingerprint. The five resident paths load the artifact
+   on their own first (the ``load`` stage, timed with the port's
+   StageTimer: ``ds.bit_matrix``, the u64 bytes to the device matrix
+   through the pinned staging ring and deinterleave_u64, one load of 7
+   chunks), then learn on the loaded dataset; the stages and the load's
+   peak device memory are printed, and the peak must stay under the
+   matrix plus three chunks. Each path
    must launch the kernels it is built on (PATH_KERNELS) and learn a model
-   with at least one rule and finite importances. One more run of each
+   with at least one rule and finite importances. Then the results-site
+   step, which launches no kernel: ``amr_database`` set in a temporary
+   settings file, ``collect amr`` through the port's CLI on a synthetic
+   PATRIC table of 100,000 rows from --seed (its 50/50 list, then one
+   dataset with every filter, exported), ``results site`` over the
+   reports of ``device`` and ``tree-device``, served by ``serve_site`` on
+   port 0; index.html, a details.html and summary.json fetched with
+   urllib, summary.json held to the runs' results.json. One more run of each
    device path under torch.profiler must give the same fingerprint, and
    give the device time by kernel and the device's busy share of the
    run; for ``device``, ``tree-device`` and the streamed paths also the
    host-to-device copies by kind (pinned or pageable: the chunk uploads
    must be pinned), their bytes, time and rate, and the share of their
-   time during which a kernel ran.
+   time during which a kernel ran. The profiled ``device-argmax`` run is
+   traced by the port's ``profiling.torch_trace``, whose Chrome trace file
+   must be there.
    Then ``ingest-device``: the batched build on the card of 342 genomes
    of 4.4 Mbp from --seed (k = 31, batches of 32, the singleton filter)
    and ``train_scm``, which must learn a planted marker. Then the ninth
@@ -128,8 +155,9 @@ Phases (any failure exits non-zero and prints no result):
    files of one contig with their labels as a metadata TSV (set-up), then
    ``from_contigs`` into a MemoryArtifact on the card (each genome counted
    by one ``kmer_canon`` launch and a sort, the union merged on the host;
-   k = 31, the singleton filter), ``split_with_proportion`` (5 folds) and
-   ``learn_SCM(engine="device")``. It must give ``ingest-device``'s union
+   k = 31, the singleton filter), then the artifact loaded once (the
+   ``load`` stage), ``split_with_proportion`` (5 folds) and
+   ``learn_SCM(engine="device")`` on the loaded dataset. It must give ``ingest-device``'s union
    and matrix (genome rows mapped by id: ``from_contigs`` orders genomes
    by label), 342 ``kmer_canon`` launches, and learn the three planted
    markers; each stage's wall is printed with the card's name and power
@@ -169,7 +197,12 @@ Phases (any failure exits non-zero and prints no result):
    the merged matrix), each a call of its wrapper by CUDA events with the
    hand kernels' own device time beside it, against the bytes bound
    (build_columns also with its ``ptxas`` registers and spills), and
-   ``torch.sort`` at one batch on a line of its own. Every timing
+   ``torch.sort`` at one batch on a line of its own. deinterleave_u64 over
+   the whole 342 x 9.6M matrix in one launch against its bytes bound, its
+   plain version and ``torch.stack`` of the strided halves
+   (``library_ms``); then the load itself, BitMatrix.from_u64 through the
+   pinned staging against the parent's host split and pageable upload
+   (old, new, new, old), with the host's share of each. Every timing
    line carries the card's ``nvidia-smi`` name and power limit.
 
 The last lines of standard output are the kernels' JSON line, the card's
@@ -184,6 +217,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -278,6 +312,10 @@ KERNELS = {
                       "grm_tpu/parallel/device_build.py:158"),
     "compact_columns": ("grm_tpu_torch/csrc/device_build.cu",
                         "grm_tpu/parallel/device_build.py:222"),
+    # An XLA program on the TPU (no pallas_call): the artifact's matrix
+    # split after its upload, in BitMatrix.from_u64 (:297).
+    "deinterleave_u64": ("grm_tpu_torch/csrc/deinterleave.cu",
+                         "grm_tpu/ops/popcount.py:69"),
 }
 # The kernels each main path is built on. learn scm: the exact engine's
 # pass 1 and pass 2; the argmax engine's CV sweep, its winner-block recount,
@@ -290,20 +328,23 @@ KERNELS = {
 # batch columns, the union merge, the singleton filter (its column counts
 # inside its kernel), then train_scm's greedy steps (popcount_colsum).
 # Dataset creation: each genome's windows (counted on the card, merged on
-# the host), then learn_SCM's exact engine.
+# the host), then learn_SCM's exact engine. Each path that loads a resident
+# artifact splits its matrix on the card (deinterleave_u64, one launch a
+# staged chunk).
 PATH_KERNELS = {
-    "device": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
-    "device-argmax": ("scm_sweep_argmax", "popcount_colsum_pairs",
-                      "popcount_colsum"),
-    "tree-device": ("cart_sweep", "cart_exact_tuples", "cart_exact_select"),
-    "tree-device-argmax": ("cart_sweep",),
-    "tree-host": ("popcount_colsum",),
+    "device": ("deinterleave_u64", "scm_sweep_sbmax", "popcount_colsum_pairs"),
+    "device-argmax": ("deinterleave_u64", "scm_sweep_argmax",
+                      "popcount_colsum_pairs", "popcount_colsum"),
+    "tree-device": ("deinterleave_u64", "cart_sweep", "cart_exact_tuples",
+                    "cart_exact_select"),
+    "tree-device-argmax": ("deinterleave_u64", "cart_sweep"),
+    "tree-host": ("deinterleave_u64", "popcount_colsum"),
     "device-streamed": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "tree-device-streamed": ("cart_sweep", "cart_exact_tuples",
                              "cart_exact_select"),
     "ingest-device": ("kmer_canon", "build_columns", "merge_columns",
                       "compact_columns", "popcount_colsum"),
-    "create-contigs": ("kmer_canon", "scm_sweep_sbmax",
+    "create-contigs": ("kmer_canon", "deinterleave_u64", "scm_sweep_sbmax",
                        "popcount_colsum_pairs"),
 }
 # The CUDA function each wrapper launches, as torch.profiler names it.
@@ -321,6 +362,7 @@ KERNEL_FUNCTIONS = {
     "build_columns": "build_columns_tile_kernel",
     "merge_columns": "merge_columns_tile_kernel",
     "compact_columns": "compact_columns_tile_kernel",
+    "deinterleave_u64": "deinterleave_u64_kernel",
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -408,6 +450,74 @@ def build_artifact(n_genomes, n_kmers, seed, device, n_classes=2):
     split_with_proportion(mem, "sp", train_prop=0.67, random_seed=42,
                           n_folds=N_FOLDS, device=device)
     return mem
+
+
+# -- AMR metadata -------------------------------------------------------------
+
+AMR_ROWS = 100_000  # phase 5's results-site step: rows of the AMR table
+# PATRIC_genomes_AMR.txt's columns in its order: the six that grm reads and
+# some it does not.
+AMR_HEADER = ("genome_id", "genome_name", "taxon_id", "antibiotic",
+              "resistant_phenotype", "measurement", "measurement_sign",
+              "measurement_value", "measurement_unit",
+              "laboratory_typing_method", "source")
+AMR_SPECIES = ("Escherichia coli K-12", "escherichia COLI str. 536",
+               "[Klebsiella] pneumoniae subsp.", "Klebsiella pneumoniae",
+               "Staphylococcus aureus MRSA", "Mycobacterium tuberculosis H37Rv",
+               "Salmonella enterica serovar", "Acinetobacter baumannii",
+               "Pseudomonas aeruginosa PAO1", "Enterococcus faecium",
+               "Neisseria gonorrhoeae", "Streptococcus  pneumoniae")
+AMR_DRUGS = ("ampicillin", "ciprofloxacin", "gentamicin", "isoniazid",
+             "methicillin", "meropenem", "rifampin", "tetracycline",
+             "vancomycin", "trimethoprim/sulfamethoxazole")
+
+
+def write_amr_table(path, n_rows, seed):
+    """A synthetic PATRIC AMR table of ``n_rows`` data rows from ``seed``:
+    the file's columns in its order, species and drugs drawn skewed (so that
+    some groups pass the 50/50 list filter and some do not), genomes tested
+    against several drugs; exact duplicate rows, empty cells, ``NA``,
+    ``nan`` and ``N/A`` strings, disk-diffusion (``mm``) rows, Intermediate
+    and other phenotypes, genomes whose rows contradict each other, quoted
+    names (one holding a tab), short rows and blank lines."""
+    rng = np.random.default_rng(seed)
+    zipf = lambda n: (1.0 / np.arange(1, n + 1) ** 1.2) / np.sum(
+        1.0 / np.arange(1, n + 1) ** 1.2)
+    sp = rng.choice(len(AMR_SPECIES), n_rows, p=zipf(len(AMR_SPECIES)))
+    dr = rng.choice(len(AMR_DRUGS), n_rows, p=zipf(len(AMR_DRUGS)))
+    gid = rng.integers(0, max(n_rows // 4, 1), n_rows)
+    pheno = rng.choice(["Resistant", "Susceptible", "Intermediate",
+                        "Non-susceptible", ""], n_rows,
+                       p=[0.46, 0.44, 0.06, 0.02, 0.02])
+    meas = rng.choice(["8", "0.5", "16", ">=32", "<=0.25", "NA", "nan", "",
+                       "2"], n_rows)
+    unit = rng.choice(["mg/L", "mm", "", "N/A"], n_rows,
+                      p=[0.9, 0.05, 0.03, 0.02])
+    kind = rng.random(n_rows)
+    lines = ["\t".join(AMR_HEADER)]
+    rows = []
+    for i in range(n_rows):
+        if rows and kind[i] < 0.05:  # an exact duplicate of an earlier row
+            row = list(rows[rng.integers(len(rows))])
+        elif rows and kind[i] < 0.07:  # the same test, the other phenotype
+            row = list(rows[rng.integers(len(rows))])
+            row[4] = "Susceptible" if row[4] == "Resistant" else "Resistant"
+        else:
+            name = AMR_SPECIES[sp[i]]
+            if kind[i] > 0.995:
+                name = '"%s\tisolate %d"' % (name, i)
+            elif kind[i] > 0.99:
+                name = '"%s, isolate %d"' % (name, i)
+            row = ["%d.%d" % (1000 + sp[i], gid[i]), name,
+                   str(1000 + sp[i]), AMR_DRUGS[dr[i]], pheno[i], meas[i],
+                   "", meas[i], unit[i], "Broth dilution", "lab %d" % (i % 7)]
+        rows.append(row)
+        if kind[i] < 0.001:
+            lines.append("")
+        lines.append("\t".join(row[:6] if 0.4 < kind[i] < 0.402 else row))
+    with open(path, "w", newline="") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
 
 # -- ingest data --------------------------------------------------------------
@@ -511,6 +621,9 @@ def fingerprint(out):
 
 
 def learn(mem, engine, device):
+    """learn_SCM on ``mem``, an in-memory artifact or a GrmDataset (whose
+    loaded matrix then serves)."""
+    from grm_tpu_torch.dataset import as_dataset
     from grm_tpu_torch.learning.experiments import learn_SCM
 
     return learn_SCM(
@@ -518,20 +631,22 @@ def learn(mem, engine, device):
         model_type=["conjunction", "disjunction"], p=P_GRID,
         max_rules=MAX_RULES, max_equiv_rules=10000,
         parameter_selection="cv", random_seed=42, bound_delta=0.05,
-        bound_max_genome_size=mem["kmer_sequences"].shape[0],
+        bound_max_genome_size=as_dataset(mem, device).kmer_count,
         engine=engine, device=device)
 
 
 def learn_tree(mem, engine, device, criterion, max_depth):
+    """learn_CART on ``mem``, as :func:`learn` takes it."""
+    from grm_tpu_torch.dataset import as_dataset
     from grm_tpu_torch.learning.experiments import learn_CART
 
-    n_classes = mem["phenotype_tags"].shape[0]
+    ds = as_dataset(mem, device)
+    n_classes = len(ds.phenotype.tags)
     return learn_CART(
         dataset_file=mem, split_name="sp", criterion=criterion,
         max_depth=[max_depth], min_samples_split=[2],
         class_importance=[{c: 1.0 for c in range(n_classes)}],
-        bound_delta=0.05,
-        bound_max_genome_size=mem["kmer_sequences"].shape[0],
+        bound_delta=0.05, bound_max_genome_size=ds.kmer_count,
         parameter_selection="cv", engine=engine, device=device)
 
 
@@ -1378,6 +1493,154 @@ def check_stream(device):
 
     stream_cases(device, np.random.RandomState(12), record)
     return worst
+
+
+# Phase 3's deinterleave_u64 cases (tests/test_torch_cuda.py runs them too):
+# (genomes, k-mers, chunk columns: LOAD_CHUNK_BYTES made that small, the
+# load's widths being multiples of 4). 342 genomes give W64 = 6 uint64 rows
+# and 11 word rows (an odd W64's last low half dropped); 96 and 352 are
+# multiples of 32 but not of 64; chunks that leave the last one ragged, K
+# that is no multiple of 4 (the kernel's word-by-word path), the default
+# chunk width (None), no k-mer. Up to ONE_COLUMN_K k-mers, the wrapper also
+# splits the matrix in one-column chunks.
+DEINTERLEAVE_CASES = [(342, 1_000_003, 1 << 18), (342, 4099, 4),
+                      (96, 100_001, 7776), (352, 65_536, 65_536),
+                      (64, 1000, 332), (5022, 30_001, 4096), (1, 17, 4),
+                      (342, 3_000_001, None), (342, 0, None)]
+ONE_COLUMN_K = 5000
+
+
+def load_peak(load, n_words, k):
+    """``load()``, a load of a (n_words, k) matrix on the card, with the
+    peak device memory it allocated: returns (its result, the peak bytes,
+    the bound: the matrix plus three staging chunks of the load's width).
+    Fails past the bound."""
+    import torch
+
+    from grm_tpu_torch.ops.popcount import load_chunk_cols
+
+    w64 = -(-n_words // 2)
+    bound = 4 * n_words * k + 3 * 8 * w64 * min(load_chunk_cols(w64), k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = load()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if peak > bound:
+        raise AssertionError("the load of a %dx%d matrix peaked at %d bytes "
+                             "on the card, past the matrix plus three "
+                             "chunks (%d)" % (n_words, k, peak, bound))
+    return out, peak, bound
+
+
+def deinterleave_cases(device, rng, record):
+    """Phase 3, the artifact's matrix split: for each of DEINTERLEAVE_CASES
+    the chunked split on the card (split_u64, the pinned staging ring) one
+    launch a chunk, against the host split (u64_matrix_to_u32) and against
+    the plain version on the card; BitMatrix.from_u64 on the card against
+    the CPU's; the wrapper alone at a column offset that is no multiple of
+    4, and in one-column chunks; the split with the current stream kept
+    busy, so that the host must
+    wait before it refills a staging buffer; and, at the default chunk
+    width, the load's peak device memory under the matrix plus three
+    chunks."""
+    import torch
+
+    from grm_tpu_torch.ops import _build
+    from grm_tpu_torch.ops import popcount as pc
+
+    def matrix(n_rows, k):
+        w64 = -(-n_rows // 64)
+        return np.frombuffer(rng.bytes(8 * w64 * k), np.uint64).reshape(
+            w64, k).copy()
+
+    @contextlib.contextmanager
+    def chunks(w64, cols):
+        """split_u64's staged chunks ``cols`` columns wide for ``w64``
+        uint64 rows (None: the default width)."""
+        saved = pc.LOAD_CHUNK_BYTES
+        if cols is not None:
+            pc.LOAD_CHUNK_BYTES = 8 * w64 * cols
+            assert pc.load_chunk_cols(w64) == cols
+        try:
+            yield
+        finally:
+            pc.LOAD_CHUNK_BYTES = saved
+
+    for n_rows, k, chunk in DEINTERLEAVE_CASES:
+        m64 = matrix(n_rows, k)
+        n_words = -(-n_rows // 32)
+        w64 = m64.shape[0]
+        what = "%d genomes x %d, chunks of %s" % (n_rows, k, chunk)
+        want = torch.from_numpy(
+            pc.u64_matrix_to_u32(m64)[:n_words].view(np.int32))
+        n0 = _build.launches["deinterleave_u64"]
+        if chunk is None:
+            got, peak, bound = load_peak(
+                lambda: pc.split_u64(m64, n_words, device), n_words, k)
+            log("    deinterleave_u64: the load of %s peaked at %d bytes on "
+                "the card, under the matrix plus three chunks (%d)"
+                % (what, peak, bound))
+        else:
+            with chunks(w64, chunk):
+                got = pc.split_u64(m64, n_words, device)
+        with chunks(w64, chunk):
+            n_chunks = -(-k // pc.load_chunk_cols(w64)) if k else 0
+        if _build.launches["deinterleave_u64"] - n0 != n_chunks:
+            raise AssertionError("deinterleave_u64: %d launches for %d chunks "
+                                 "at %s" % (_build.launches["deinterleave_u64"]
+                                            - n0, n_chunks, what))
+        record("deinterleave_u64", got, want, what + " (host split)")
+        raw = torch.from_numpy(m64.view(np.int32).reshape(w64, 2 * k)).to(
+            device)
+        record("deinterleave_u64", got, pc.deinterleave_u64_plain(
+            raw, n_words), what + " (plain version on the card)")
+        with chunks(w64, chunk):
+            record("deinterleave_u64", pc.BitMatrix.from_u64(
+                m64, n_rows, device).data, pc.BitMatrix.from_u64(
+                m64, n_rows, "cpu").data, what + " (BitMatrix.from_u64)")
+        if k >= 8:  # the wrapper alone, at an odd column offset
+            out = torch.full((n_words, k + 5), -7, dtype=torch.int32,
+                             device=device)
+            plain = out.clone()
+            plain[:, 3:3 + k] = pc.deinterleave_u64_plain(raw, n_words)
+            record("deinterleave_u64", pc.deinterleave_u64(raw, out, 3),
+                   plain, what + " (the wrapper at offset 3)")
+        if 0 < k <= ONE_COLUMN_K:  # the wrapper in one-column chunks
+            out = torch.full((n_words, k), -7, dtype=torch.int32,
+                             device=device)
+            for lo in range(k):
+                pc.deinterleave_u64(raw[:, 2 * lo:2 * lo + 2].contiguous(),
+                                    out, lo)
+            record("deinterleave_u64", out, want.to(device),
+                   what + " (the wrapper in one-column chunks)")
+        del raw
+    # The current stream busy: the kernels queue behind it while the host
+    # fills the staging ring, so every refill must wait for its copy.
+    m64 = matrix(342, 90_001)
+    torch.cuda._sleep(int(2e8))
+    with chunks(6, 10_000):
+        got = pc.split_u64(m64, 11, device)
+    record("deinterleave_u64", got, torch.from_numpy(
+        pc.u64_matrix_to_u32(m64)[:11].view(np.int32)),
+        "342 x 90,001 in 10 chunks behind a busy stream")
+
+
+def check_deinterleave(device):
+    """Phase 3, the artifact's matrix split: :func:`deinterleave_cases`.
+    Returns the largest error (0.0)."""
+    worst = [0.0]
+
+    def record(name, got, want, what):
+        err = exact_err(got, want)
+        worst[0] = max(worst[0], err)
+        if err != 0.0:
+            raise AssertionError("%s differs at %s (max abs err %r)"
+                                 % (name, what, err))
+
+    deinterleave_cases(device, np.random.RandomState(14), record)
+    return worst[0]
 
 
 @contextlib.contextmanager
@@ -2250,11 +2513,12 @@ def run_create(device, seed, paths, ingest, card):
 
     import torch
 
-    from grm_tpu_torch.dataset import (MemoryArtifact, from_contigs,
-                                       split_with_proportion)
+    from grm_tpu_torch.dataset import (GrmDataset, MemoryArtifact,
+                                       from_contigs, split_with_proportion)
     from grm_tpu_torch.ops import _build
     from grm_tpu_torch.ops.kmer import decode_kmers_bytes
-    from grm_tpu_torch.ops.popcount import u64_matrix_to_u32
+    from grm_tpu_torch.ops.popcount import load_chunk_cols, u64_matrix_to_u32
+    from grm_tpu_torch.profiling import StageTimer
 
     codes_list, labels, marker_kmers, union, matrix = ingest
     with tempfile.TemporaryDirectory() as tmp:
@@ -2275,30 +2539,45 @@ def run_create(device, seed, paths, ingest, card):
                            phenotype_metadata_path=meta, device=device,
                            timings=timings)
         t_create = time.time() - t0
-        t0 = time.time()
-        split_with_proportion(mem, "sp", train_prop=0.67, random_seed=42,
-                              n_folds=N_FOLDS, device=device)
-        torch.cuda.synchronize()
-        t_split = time.time() - t0
-        t0 = time.time()
-        fp = fingerprint(learn(mem, "device", device))
-        torch.cuda.synchronize()
-        t_learn = time.time() - t0
+        # The artifact loaded once (the ``load`` stage), then split and
+        # learnt on the loaded dataset.
+        timer = StageTimer()
+        ds = GrmDataset(mem, device=device)
+        n_words, n_kmers = -(-len(codes_list) // 32), ds.kmer_count
+        with timer.stage("load"):
+            _, peak, bound = load_peak(ds.bit_matrix, n_words, n_kmers)
+        with timer.stage("split"):
+            split_with_proportion(ds, "sp", train_prop=0.67, random_seed=42,
+                                  n_folds=N_FOLDS, device=device)
+            torch.cuda.synchronize()
+        with timer.stage("learn"):
+            fp = fingerprint(learn(ds, "device", device))
+            torch.cuda.synchronize()
         paths["create-contigs"] = dict(_build.launches)
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         count_profile(specs[:8], device, card)
     n_genomes = len(codes_list)
     mbp = sum(len(c) for c in codes_list) / 1e6
-    n_kmers = mem["kmer_sequences"].shape[0]
+    t = timer.stages
     log("    create-contigs (%s): from_contigs %.3f s (%.1f Mbp/s): FASTA "
         "encode %.3f s, counting on the card %.3f s (transfers included), "
-        "host merge %.3f s, artifact write %.3f s; split %.3f s; learn_SCM"
+        "host merge %.3f s, artifact write %.3f s; load %.3f s (peak %d "
+        "bytes on the card, matrix + 3 chunks: %d); split %.3f s; learn_SCM"
         "(device) %.3f s; %d k-mers after the singleton filter; host peak "
         "RSS %.2f GB (%.2f GB before the path); launches %s"
         % (card, t_create, mbp / t_create, timings.get("encode", 0.0),
            timings.get("count", 0.0), timings.get("merge", 0.0),
-           timings.get("write", 0.0), t_split, t_learn, n_kmers, rss / 1e6,
-           rss0 / 1e6, paths["create-contigs"]))
+           timings.get("write", 0.0), t["load"], peak, bound, t["split"],
+           t["learn"], n_kmers, rss / 1e6, rss0 / 1e6,
+           paths["create-contigs"]))
+    log("    stages of create-contigs (%s): %s" % (card, ", ".join(
+        "%s %.3f s" % kv for kv in t.items())))
+    load_chunks = -(-n_kmers // load_chunk_cols(-(-n_words // 2)))
+    if paths["create-contigs"]["deinterleave_u64"] != load_chunks:
+        raise AssertionError("create-contigs: %d deinterleave_u64 launches, "
+                             "not one load's %d" % (paths["create-contigs"]
+                                                    ["deinterleave_u64"],
+                                                    load_chunks))
     log("    create-contigs: hp %s, cv score %.5f, rules %s, train risk "
         "%.4f, test risk %.4f" % (fp["hp"], fp["score"], fp["rules"],
                                   fp["train"]["risk"][0],
@@ -2332,6 +2611,137 @@ def run_create(device, seed, paths, ingest, card):
         raise AssertionError("create-contigs learned markers %s of the three"
                              ": %s" % (sorted(hit), fp["rules"]))
     return fp
+
+
+@contextlib.contextmanager
+def settings_file(path):
+    """``GRM_SETTINGS_PATH`` set to ``path`` for the block."""
+    saved = os.environ.get("GRM_SETTINGS_PATH")
+    os.environ["GRM_SETTINGS_PATH"] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("GRM_SETTINGS_PATH", None)
+        else:
+            os.environ["GRM_SETTINGS_PATH"] = saved
+
+
+def run_cli(argv):
+    """The port's CLI on ``argv``, in process: its standard output."""
+    import io
+
+    from grm_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(list(argv))
+    return buf.getvalue()
+
+
+def results_site_step(seed, report_dirs, card):
+    """Phase 5's results-site step, after the learn paths (it launches no
+    kernel): ``amr_database`` set in a temporary settings file; ``collect
+    amr`` through the port's CLI on a synthetic PATRIC table of AMR_ROWS
+    rows from ``seed`` (its 50/50 list, then one dataset with every filter,
+    exported), its walls printed; ``results site`` over ``report_dirs``
+    (path -> the directory its report writer filled), served by
+    ``serve_site`` on port 0; ``index.html``, one ``details.html`` and
+    ``summary.json`` fetched with urllib, ``summary.json`` held to the runs'
+    ``results.json``; the server shut down. Any failure raises."""
+    import threading
+    import urllib.request
+
+    from grm_tpu_torch.results_site import serve_site
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            settings_file(os.path.join(tmp, "settings.json")):
+        t0 = time.time()
+        amr = write_amr_table(os.path.join(tmp, "PATRIC_genomes_AMR.txt"),
+                              AMR_ROWS, seed)
+        t_write = time.time() - t0
+        run_cli(["settings", "set", "amr_database", amr])
+        t0 = time.time()
+        listing = run_cli(["collect", "amr", "--list-datasets"])
+        t_list = time.time() - t0
+        pairs = [line.split("\t") for line in listing.splitlines()]
+        if not pairs or any(len(p) != 2 for p in pairs):
+            raise AssertionError("collect amr --list-datasets printed %r"
+                                 % listing[:200])
+        species, drug = pairs[0]
+        t0 = time.time()
+        out = run_cli(["collect", "amr", "--species", species, "--antibiotic",
+                       drug, "--drop-intermediate", "--filter-contradictions",
+                       "--numeric-phenotypes", "--output-dir",
+                       os.path.join(tmp, "amr")])
+        t_collect = time.time() - t0
+        folder = out.splitlines()[-1][len("Exported TSVs to "):]
+        exported = sorted(os.listdir(folder))
+        with open(os.path.join(folder, [f for f in exported if f.endswith(
+                "_phenotype_metadata.tsv")][0])) as f:
+            labels = {line.split("\t")[1] for line in f.read().splitlines()}
+        if not out.startswith("Total: ") or len(exported) != 4 \
+                or not labels <= {"0", "1"}:
+            raise AssertionError("collect amr printed %r and exported %s "
+                                 "with labels %s" % (out, exported, labels))
+        log("    results-site (%s): collect amr on a %d-row PATRIC table "
+            "(written in %.2f s, set-up): --list-datasets %.3f s (%d "
+            "datasets), one dataset with every filter %.3f s: %s"
+            % (card, AMR_ROWS, t_write, t_list, len(pairs), t_collect,
+               out.splitlines()[0]))
+        site = os.path.join(tmp, "site")
+        argv = ["results", "site", "--output-dir", site]
+        runs = {}
+        for path, results_dir in report_dirs.items():
+            argv += ["--run", species, "%s %s" % (drug, path), results_dir]
+            name = "%s___%s" % (("%s %s" % (drug, path)).lower().replace(
+                " ", "_"), species.lower().replace(" ", "_"))
+            with open(os.path.join(results_dir, "results.json")) as f:
+                runs[name] = json.load(f)
+        t0 = time.time()
+        run_cli(argv)
+        t_site = time.time() - t0
+        server = serve_site(site, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = "http://127.0.0.1:%d" % server.server_address[1]
+            fetch = lambda rel: urllib.request.urlopen(base + rel,
+                                                       timeout=30).read()
+            index = fetch("/index.html").decode()
+            summary = json.loads(fetch("/summary.json"))
+            details = fetch("/datasets/%s/details.html"
+                            % summary[0]["ds_full_name"]).decode()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        if sorted(r["ds_full_name"] for r in summary) != sorted(runs):
+            raise AssertionError("summary.json holds %s, not %s"
+                                 % ([r["ds_full_name"] for r in summary],
+                                    sorted(runs)))
+        for row in summary:
+            res = runs[row["ds_full_name"]]
+            n = sum(len(v) for v in res["classifications"].values())
+            want = {k: round(float(res["metrics"]["test"][k][0]), 4)
+                    for k in ("risk", "sensitivity", "specificity")}
+            want.update(n_rules=float(res["model"]["n_rules"]),
+                        ds_n_examples=float(n))
+            got = {k: row.get(k) for k in want}
+            if got != want:
+                raise AssertionError("summary.json's %s row %s != its "
+                                     "results.json's %s"
+                                     % (row["ds_full_name"], got, want))
+            if row["ds_full_name"] not in index:
+                raise AssertionError("index.html does not link %s"
+                                     % row["ds_full_name"])
+        if "<h2>Model" not in details:
+            raise AssertionError("details.html holds no model section")
+        log("    results-site: `results site` over %s in %.3f s; served on "
+            "port %d: index.html, %s/details.html and summary.json fetched, "
+            "summary.json == the runs' results.json; server shut down"
+            % (sorted(report_dirs), t_site, server.server_address[1],
+               summary[0]["ds_full_name"]))
 
 
 def ingest_path(codes_list, labels, device):
@@ -2434,6 +2844,126 @@ def run_ingest(device, seed, paths):
         if i < 10 or any(_is_function(key, f) for f in hand):
             log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
     return ingest
+
+
+def time_load(m64, n_rows, device, paths, card):
+    """Phase 6, the artifact's matrix split at the main paths' shape:
+    deinterleave_u64 over the whole (W64, K) matrix in one launch, its raw
+    words already on the card, against the bytes bound (the raw words read
+    once, the word rows written once), its plain version, and the same
+    function in PyTorch (``library_ms``: ``torch.stack`` of the two strided
+    half views of the uint64 rows whose halves are both kept into the
+    output, plus, where n_words is odd, the copy of the last high half, so
+    that it moves the kernel's bytes). Then the load itself,
+    BitMatrix.from_u64 through the pinned staging ring, against the
+    parent's route (the host split ``u64_matrix_to_u32``, then a pageable
+    upload), in turns old, new, new on one host thread, the same again in
+    reverse, each with the artifact's bytes a second; the host's share of
+    each route (the old route's split, the new route's copies into pinned
+    staging alone, on FILL_THREADS threads and on one) and the pinned
+    upload's rate of one chunk."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from grm_tpu_torch.ops import popcount as pc
+
+    w64, k = m64.shape
+    n_words = -(-n_rows // 32)
+    raw = torch.from_numpy(m64.view(np.int32).reshape(w64, 2 * k)).to(device)
+    out = torch.empty((n_words, k), dtype=torch.int32, device=device)
+    kernel = lambda: pc.deinterleave_u64(raw, out, 0)
+    plain = lambda: pc.deinterleave_u64_plain(raw, n_words)
+    err = exact_err(kernel(), plain())
+    full = torch.empty((n_words, k), dtype=torch.int32, device=device)
+    halves = raw.view(w64, k, 2)
+    both = n_words // 2  # uint64 rows whose two halves are kept
+    stack = lambda: torch.stack((halves[:both, :, 1], halves[:both, :, 0]),
+                                dim=1, out=full[:2 * both].view(both, 2, k))
+    rest = lambda: full[n_words - 1].copy_(halves[w64 - 1, :, 1])
+    stack()
+    if n_words % 2:
+        rest()
+    err = max(err, exact_err(full, out))
+    if err != 0.0:
+        raise AssertionError("deinterleave_u64 differs from its plain "
+                             "version (or torch.stack) at %dx%d (%r)"
+                             % (w64, k, err))
+    ms, timed_by = device_ms(kernel, 20, KERNEL_FUNCTIONS["deinterleave_u64"])
+    event_ms = time_cuda(kernel, 20)
+    plain_ms = time_cuda(plain, 1)
+    library_parts = {"stack": time_cuda(stack, 20),
+                     "last high half": time_cuda(rest, 20) if n_words % 2
+                     else 0.0}
+    library_ms = sum(library_parts.values())
+    del raw, out, full, halves
+    nbytes = m64.nbytes + 4 * n_words * k
+
+    def new(threads):
+        saved, pc.FILL_THREADS = pc.FILL_THREADS, threads
+        try:
+            t0 = time.time()
+            pc.BitMatrix.from_u64(m64, n_rows, device)
+            torch.cuda.synchronize()
+            return time.time() - t0
+        finally:
+            pc.FILL_THREADS = saved
+
+    def old():
+        t0 = time.time()
+        m32 = pc.u64_matrix_to_u32(m64)[:n_words]
+        t_split = time.time() - t0
+        pc.BitMatrix(m32, n_rows, device=device)
+        torch.cuda.synchronize()
+        return time.time() - t0, t_split
+
+    # The parent's route, the load's (FILL_THREADS host threads) and the
+    # load's on one host thread, in turns.
+    threads = pc.FILL_THREADS
+    old_1, new_1, one_1 = old(), new(threads), new(1)
+    one_2, new_2, old_2 = new(1), new(threads), old()
+    # The new route's host work alone: every chunk into pinned staging.
+    ch = pc.load_chunk_cols(w64)
+    stage = torch.empty(2 * w64 * ch, dtype=torch.int32, pin_memory=True)
+    host_fill_s = {}
+    for n in (threads, 1):
+        pool = ThreadPoolExecutor(n) if n > 1 else None
+        t0 = time.time()
+        for lo in range(0, k, ch):
+            c = min(ch, k - lo)
+            pc._fill(stage[:2 * w64 * c].numpy().view(np.uint64).reshape(
+                w64, c), m64[:, lo:lo + c], pool, n)
+        host_fill_s["%d threads" % n] = time.time() - t0
+        if pool is not None:
+            pool.shutdown()
+    chunk_dev = torch.empty_like(stage, device=device)
+    pinned_ms = time_cuda(lambda: chunk_dev.copy_(stage, non_blocking=True),
+                          10)
+    del stage, chunk_dev
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": library_ms,
+           "library_call": "torch.stack((hi, lo), dim=1, out=...) of the "
+                           "strided half views, then the last high half's "
+                           "copy_ where n_words is odd",
+           "library_parts_ms": library_parts,
+           "load_s": {"old": [old_1[0], old_2[0]], "new": [new_1, new_2],
+                      "new, 1 thread": [one_1, one_2]},
+           "load_gb_per_s": {"old": [m64.nbytes / old_1[0] / 1e9,
+                                     m64.nbytes / old_2[0] / 1e9],
+                             "new": [m64.nbytes / new_1 / 1e9,
+                                     m64.nbytes / new_2 / 1e9]},
+           "fill_threads": threads,
+           "old_host_split_s": [old_1[1], old_2[1]],
+           "new_host_fill_s": host_fill_s,
+           "pinned_upload_gb_per_s": 8 * w64 * ch / pinned_ms / 1e6,
+           "load_chunks": -(-k // ch)}
+    log(json.dumps({"kernel": "deinterleave_u64", "shape": "W64=%d K=%d -> "
+                    "%dx%d" % (w64, k, n_words, k), **row,
+                    "timed_by": timed_by, "event_ms": event_ms,
+                    "launches": {e: paths[e]["deinterleave_u64"]
+                                 for e in paths}, "card": card}))
+    return {"deinterleave_u64": row}
 
 
 def time_ingest_kernels(codes_list, device, paths, card):
@@ -2544,23 +3074,35 @@ def time_ingest_kernels(codes_list, device, paths, card):
     return rows
 
 
-def profile_learn(what, run_once, wall, want):
+def profile_learn(what, run_once, wall, want, trace_dir=None):
     """One more run of the path ``what`` under torch.profiler:
     ``run_once()`` returns its fingerprint, which must be ``want``, the
     unprofiled run's. Prints the device time by kernel name and the
     device's busy share of ``wall``, the unprofiled run's wall seconds;
-    "not measured" if the profiler holds no device data. Returns the
-    profile."""
+    "not measured" if the profiler holds no device data. With
+    ``trace_dir`` the run is traced by the port's ``profiling.torch_trace``
+    instead, and its trace file must be there. Returns the profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from grm_tpu_torch.profiling import torch_trace
+
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if trace_dir is None else torch_trace(trace_dir)) as prof:
         got = run_once()
         torch.cuda.synchronize()
     if got != want:
         raise AssertionError("the profiled run of %s learned another model "
                              "than the unprofiled one" % what)
+    if trace_dir is not None:
+        with open(prof.trace_path) as f:
+            head = f.read(4096)
+        if '"traceEvents"' not in head and '"schemaVersion"' not in head:
+            raise AssertionError("torch_trace wrote no Chrome trace: %r"
+                                 % head[:200])
+        log("    torch_trace of %s: %s, %d bytes" % (
+            what, os.path.basename(prof.trace_path),
+            os.path.getsize(prof.trace_path)))
     try:  # only the reading of the profile may fail without failing the run
         rows = [(_device_us(e), e.key, e.count) for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
@@ -2664,6 +3206,12 @@ def run(seed):
     log("    chunk source: double-buffered pinned uploads, hit superblocks and "
         "StreamingBitMatrix.presence_counts equal plain uploads and runs "
         "(max abs err %s) in %.1f s" % (worst, time.time() - t0))
+    t0 = time.time()
+    worst = check_deinterleave(device)
+    torch.cuda.synchronize()
+    log("    deinterleave_u64: the chunked split on the card equals the host "
+        "split and the plain version, one launch a chunk (max abs err %s) in "
+        "%.1f s" % (worst, time.time() - t0))
 
     # 4. device engine == host engine at reduced size
     t0 = time.time()
@@ -2770,36 +3318,60 @@ def run(seed):
     log("[5] artifact %dx%d + %d-fold split built in %.1f s (set-up)"
         % (MEDIAN_GENOMES, MEDIAN_KMERS, N_FOLDS, time.time() - t0))
     from grm_tpu_torch.dataset import GrmDataset
+    from grm_tpu_torch.ops.popcount import load_chunk_cols
+    from grm_tpu_torch.profiling import StageTimer
     from grm_tpu_torch.reports import write_cart_outputs, write_scm_outputs
 
-    def scm_path(engine):
-        out = learn(mem, engine, device)
+    def scm_path(engine, src=mem):
+        out = learn(src, engine, device)
         torch.cuda.synchronize()
         return out, fingerprint(out)
 
-    def tree_path(engine, criterion, max_depth):
-        out = learn_tree(mem, engine, device, criterion, max_depth)
+    def tree_path(engine, criterion, max_depth, src=mem):
+        out = learn_tree(src, engine, device, criterion, max_depth)
         torch.cuda.synchronize()
         return out, tree_fingerprint(out)
 
-    def write_reports(writer, out, config, **more):
+    # The paths that load the artifact time the load on its own: the
+    # ``load`` stage (ds.bit_matrix: the u64 bytes to the device matrix,
+    # through the pinned staging ring and deinterleave_u64), then ``learn``
+    # on the loaded dataset. One load is this many deinterleave_u64 launches.
+    n_words = -(-MEDIAN_GENOMES // 32)
+    load_chunks = -(-MEDIAN_KMERS // load_chunk_cols(-(-n_words // 2)))
+    loads = {}  # path -> (StageTimer, load peak bytes, bound) of its 1st run
+
+    def loaded(path, learn_on):
+        timer = StageTimer()
+        ds = GrmDataset(mem, device=device)
+        with timer.stage("load"):
+            _, peak, bound = load_peak(ds.bit_matrix, n_words, MEDIAN_KMERS)
+        with timer.stage("learn"):
+            out = learn_on(ds)
+        loads.setdefault(path, (timer, peak, bound))
+        return out
+
+    reports_dir = tempfile.mkdtemp(prefix="grm_reports_")
+    report_dirs = {}  # path -> the directory its report writer filled
+
+    def write_reports(path, writer, out, config, **more):
         """What the CLI does after learning: the report files, into a
-        temporary directory."""
+        directory of their own (phase 5's results-site step reads them)."""
         t1 = time.time()
         (best_hp, best_hp_score, train_metrics, test_metrics, model,
          rule_importances, equivalent_rules, classifications) = out
-        with tempfile.TemporaryDirectory() as out_dir:
-            writer(
-                output_dir=out_dir, dataset=GrmDataset(mem, device=device),
-                split_name="sp", config=config, best_hp=best_hp,
-                best_hp_score=best_hp_score, train_metrics=train_metrics,
-                test_metrics=test_metrics, model=model,
-                rule_importances=rule_importances,
-                equivalent_rules=equivalent_rules,
-                classifications=classifications, running_time_seconds=0.0,
-                **more)
-            return "%s in %.2f s" % (sorted(os.listdir(out_dir)),
-                                     time.time() - t1)
+        out_dir = report_dirs[path] = os.path.join(reports_dir, path)
+        os.makedirs(out_dir)
+        writer(
+            output_dir=out_dir, dataset=GrmDataset(mem, device=device),
+            split_name="sp", config=config, best_hp=best_hp,
+            best_hp_score=best_hp_score, train_metrics=train_metrics,
+            test_metrics=test_metrics, model=model,
+            rule_importances=rule_importances,
+            equivalent_rules=equivalent_rules,
+            classifications=classifications, running_time_seconds=0.0,
+            **more)
+        return "%s in %.2f s" % (sorted(os.listdir(out_dir)),
+                                 time.time() - t1)
 
     watches = {}  # streamed path -> the ChunkWatch of its latest run
 
@@ -2812,13 +3384,17 @@ def run(seed):
         return out
 
     runners = {
-        "device": lambda: scm_path("device"),
-        "device-argmax": lambda: scm_path("device-argmax"),
-        "tree-device": lambda: tree_path(
-            "device", list(CART_CRITERIA), 10),
-        "tree-device-argmax": lambda: tree_path(
-            "device-argmax", list(CART_CRITERIA), 10),
-        "tree-host": lambda: tree_path("host", ["gini"], 3),
+        "device": lambda: loaded(
+            "device", lambda ds: scm_path("device", ds)),
+        "device-argmax": lambda: loaded(
+            "device-argmax", lambda ds: scm_path("device-argmax", ds)),
+        "tree-device": lambda: loaded("tree-device", lambda ds: tree_path(
+            "device", list(CART_CRITERIA), 10, ds)),
+        "tree-device-argmax": lambda: loaded(
+            "tree-device-argmax", lambda ds: tree_path(
+                "device-argmax", list(CART_CRITERIA), 10, ds)),
+        "tree-host": lambda: loaded("tree-host", lambda ds: tree_path(
+            "host", ["gini"], 3, ds)),
         "device-streamed": lambda: streamed(
             "device-streamed", lambda: scm_path("device")),
         "tree-device-streamed": lambda: streamed(
@@ -2838,10 +3414,11 @@ def run(seed):
         written = None
         if path == "device":  # learn scm's default path writes its reports
             written = write_reports(
-                write_scm_outputs, out, {"engine": path, "hp_choice": "cv"})
+                path, write_scm_outputs, out,
+                {"engine": path, "hp_choice": "cv"})
         elif path in ("tree-device", "tree-device-argmax"):
             written = write_reports(
-                write_cart_outputs, out,
+                path, write_cart_outputs, out,
                 {"engine": path[len("tree-"):], "hp_choice": "cv",
                  "criterion": list(CART_CRITERIA), "max_depth": [10]},
                 classification_type="binary")
@@ -2890,11 +3467,27 @@ def run(seed):
                 % [(kname, n) for kname, n, _ in exact_sizes])
         if written:
             log("    reports: %s" % written)
+        if path in loads:
+            timer, peak, bound = loads[path]
+            log("    stages of %s (%s): %s; the load peaked at %d bytes on "
+                "the card (matrix + 3 chunks: %d), %d deinterleave_u64 "
+                "launches" % (path, smi, ", ".join(
+                    "%s %.3f s" % kv for kv in timer.stages.items()), peak,
+                    bound, paths[path]["deinterleave_u64"]))
+            if paths[path]["deinterleave_u64"] != load_chunks:
+                raise AssertionError(
+                    "path %r: %d deinterleave_u64 launches, not one load's %d"
+                    % (path, paths[path]["deinterleave_u64"], load_chunks))
         missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
         if missing:
             raise AssertionError("path %r launched no %s" % (path, missing))
     if not frontiers:
         raise AssertionError("the CART engines launched no frontier")
+    try:  # after the learn paths, on the reports of two of them
+        results_site_step(seed, {p: report_dirs[p] for p in (
+            "device", "tree-device")}, smi)
+    finally:
+        shutil.rmtree(reports_dir, ignore_errors=True)
     # What streaming adds on the host, inside each streamed path's wall:
     # the pinned chunk layout, built once a dataset.
     from grm_tpu_torch.ops.popcount import StreamingBitMatrix
@@ -2911,10 +3504,12 @@ def run(seed):
         "%.3f s)" % (layout.source.host.nbytes, layout.source.n_chunks,
                      time.time() - t0, t_pin))
     del layout, m64
+    trace_dir = tempfile.mkdtemp(prefix="grm_trace_")
     for engine in ("device", "device-argmax"):
         prof = profile_learn("learn_SCM(engine=%r)" % engine,
                              lambda: scm_path(engine)[1], walls[engine],
-                             fingerprints[engine])
+                             fingerprints[engine],
+                             trace_dir if engine == "device-argmax" else None)
         if engine == "device":  # the resident upload, beside the streamed
             transfer_summary(prof, "device", 0)
     for path in ("tree-device", "tree-device-argmax"):
@@ -2927,6 +3522,7 @@ def run(seed):
         prof = profile_learn(path, lambda: runners[path]()[1], walls[path],
                              fingerprints[path])
         transfer_summary(prof, path, watches[path].uploaded())
+    shutil.rmtree(trace_dir, ignore_errors=True)
 
     # The device ingest path, on its own data; then dataset creation from
     # the same genomes as FASTA files, held to its union and matrix.
@@ -2938,12 +3534,16 @@ def run(seed):
     # 6. kernel times at the main paths' shapes
     log("[6] the card's measured rates, then kernel times at the main "
         "paths' shapes:")
-    bm = GrmDataset(mem, device=device).bit_matrix()
+    ds = GrmDataset(mem, device=device)
+    bm = ds.bit_matrix()
     b1_per_s, sfu_per_s = probe_card(popc_per_s)
     machine_code()
     rows = time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                         max(n for n, _ in frontiers), exact_sizes)
-    del bm, mem
+    del bm
+    rows.update(time_load(ds.kmer_matrix_u64(), MEDIAN_GENOMES, device, paths,
+                          smi))
+    del ds, mem
     rows.update(time_ingest_kernels(codes_list, device, paths,
                                     nvidia_smi("name,power.limit")))
     kernels = []

@@ -8,8 +8,9 @@ unless the caller passes ``device="cpu"``, where every hand-written kernel
 
 - ``grm_tpu_torch.ops``       the CUDA kernels and their wrappers: masked
                               popcount column sums, the SCM utility sweep,
-                              the CART frontier sweep, the k-mer windows
-                              and the device ingest's matrix build.
+                              the CART frontier sweep, the k-mer windows,
+                              the device ingest's matrix build and the
+                              artifact's matrix split.
 - ``grm_tpu_torch.kmer``      host ingest: per-genome k-mer counting (on
                               the card) and the union merge (host C++,
                               ``grm_tpu_torch.native``).
@@ -21,6 +22,10 @@ unless the caller passes ``device="cpu"``, where every hand-written kernel
                               experiments.
 - ``grm_tpu_torch.parallel``  the device engines: SCM exact and argmax,
                               CART argmax (frontier scoring, forest growth).
+- ``grm_tpu_torch.collect``   PATRIC data collection (the AMR table, the
+                              FTP downloads); with ``results_site``,
+                              ``settings`` and ``profiling`` the host side
+                              of the CLI.
 """
 
 __version__ = "0.1.0"

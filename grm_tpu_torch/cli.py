@@ -17,8 +17,18 @@ matrix`` (:607, :626) likewise. ``learn scm`` and ``learn tree`` (:332,
 :480) keep the reference's engines and its default: the exact device engine
 (``--engine device``) on the card, ``host`` with ``--device cpu``, as
 ``grm`` picks ``host`` on a CPU backend; ``--engine device --device cpu``
-runs the exact engine's plain PyTorch versions. ``collect``, ``results``
-and ``settings`` are still to port (ROADMAP.md).
+runs the exact engine's plain PyTorch versions.
+
+    python -m grm_tpu_torch collect amr --amr-metadata PATRIC_genomes_AMR.txt ...
+    python -m grm_tpu_torch collect genomes --ids 511145.12 --dest dir
+    python -m grm_tpu_torch results site --run SPECIES DRUG dir --output-dir site
+    python -m grm_tpu_torch results serve --site-dir site
+    python -m grm_tpu_torch settings show|get KEY|set KEY VALUE
+    python -m grm_tpu_torch --version|--cite|--license
+
+``collect``, ``results`` and ``settings`` (:729-921) run on the host, as
+``grm``'s ``_JAX_FREE`` commands do: they take no ``--device`` and never
+touch CUDA. They read and write the settings file ``grm`` does.
 """
 
 from __future__ import annotations
@@ -686,6 +696,198 @@ def _cmd_kmer_matrix(argv):
     )
 
 
+# ---------------------------------------------------------------------------
+# collect commands (PATRIC data collection, src/app.py data tabs). These and
+# the results and settings commands run on the host: no --device, no CUDA.
+# ---------------------------------------------------------------------------
+def _cmd_collect_amr(argv):
+    parser = argparse.ArgumentParser(
+        prog="python -m grm_tpu_torch collect amr",
+        description="Filter the PATRIC AMR metadata table and export the "
+                    "per-dataset TSVs (full / phenotype metadata / id-name / "
+                    "description).",
+    )
+    parser.add_argument("--amr-metadata",
+                        help="Path to PATRIC_genomes_AMR.txt (default: the "
+                             "persisted amr_database setting — "
+                             "`grm settings set amr_database <path>`)")
+    parser.add_argument("--species", default="All")
+    parser.add_argument("--antibiotic", default="All")
+    parser.add_argument("--drop-intermediate", action="store_true")
+    parser.add_argument("--filter-contradictions", action="store_true")
+    parser.add_argument("--numeric-phenotypes", action="store_true")
+    parser.add_argument("--list-datasets", action="store_true",
+                        help="Print available (species, antibiotic) pairs "
+                             "with >=50 Resistant and >=50 Susceptible rows.")
+    parser.add_argument("--output-dir")
+    args = parser.parse_args(argv)
+
+    from .collect.amr import AmrDatabase
+    from .settings import get_setting, set_setting
+
+    amr_path = args.amr_metadata or get_setting("amr_database")
+    if not amr_path:
+        print("Error: no --amr-metadata given and no amr_database setting "
+              "persisted (grm settings set amr_database <path>).")
+        sys.exit(1)
+    amr_path = os.path.abspath(amr_path)
+
+    db = AmrDatabase.load(amr_path)
+    if args.amr_metadata:
+        # Persist the last-used database path AFTER a successful load,
+        # absolute, like the GUI's file-dialog paths (src/app.py:213-223),
+        # so bare invocations from any cwd keep working.
+        set_setting("amr_database", amr_path)
+    if args.list_datasets:
+        for species, antibiotic in db.dataset_list(min_group_count=50):
+            print("%s\t%s" % (species, antibiotic))
+        return
+    data = db.select(
+        species=args.species, antibiotic=args.antibiotic,
+        drop_intermediate=args.drop_intermediate,
+        filter_contradictions=args.filter_contradictions,
+        numeric_phenotypes=args.numeric_phenotypes,
+    )
+    phenotypes = [str(v) for v in data["resistant_phenotype"]]
+    n_res = sum(v in ("Resistant", "1") for v in phenotypes)
+    n_sus = sum(v in ("Susceptible", "0") for v in phenotypes)
+    print("Total: %d (Resistant: %d, Susceptible: %d)" % (len(data), n_res, n_sus))
+    if args.output_dir:
+        folder = db.export(data, args.output_dir, args.species, args.antibiotic)
+        print("Exported TSVs to %s" % folder)
+
+
+def _cmd_collect_genomes(argv):
+    parser = argparse.ArgumentParser(
+        prog="python -m grm_tpu_torch collect genomes",
+        description="Download contig FASTAs (and optionally feature tables) "
+                    "from the BV-BRC FTP server.",
+    )
+    parser.add_argument("--ids", nargs="+",
+                        help="Genome identifiers (e.g. 511145.12)")
+    parser.add_argument("--ids-file", help="File with one genome id per line")
+    parser.add_argument("--dest", required=True)
+    parser.add_argument("--features", action="store_true")
+    args = parser.parse_args(argv)
+
+    from .collect.patric import download_genomes
+
+    ids = list(args.ids or [])
+    if args.ids_file:
+        with open(args.ids_file) as f:
+            ids += [l.strip() for l in f if l.strip()]
+    if not ids:
+        print("Error: no genome ids specified.")
+        sys.exit(1)
+    results, errors = download_genomes(
+        ids, args.dest, features=args.features,
+        progress_callback=_progress_printer(True),
+    )
+    print()
+    print("Downloaded %d genomes; %d errors." % (len(results), len(errors)))
+    for gid, err in errors.items():
+        print("  %s: %s" % (gid, err))
+    if errors:
+        sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# results site (analysis page replacement)
+# ---------------------------------------------------------------------------
+def _cmd_results_site(argv):
+    parser = argparse.ArgumentParser(
+        prog="python -m grm_tpu_torch results site",
+        description="Aggregate learn output directories into the published "
+                    "results-site schema (summary.json + per-dataset "
+                    "overview/model/repeats JSON + static index.html).",
+    )
+    parser.add_argument(
+        "--run", action="append", nargs=3, required=True,
+        metavar=("SPECIES", "ANTIBIOTIC", "RESULTS_DIR"),
+        help="One learn run; repeat for multiple runs/repeats.",
+    )
+    parser.add_argument("--output-dir", required=True)
+    args = parser.parse_args(argv)
+
+    from .results_site import write_site
+
+    runs = [
+        {"species": s, "antibiotic": a, "results_dir": d}
+        for s, a, d in args.run
+    ]
+    summary = write_site(runs, args.output_dir)
+    print("Wrote results site for %d datasets to %s" % (len(summary), args.output_dir))
+
+
+def _cmd_results_serve(argv):
+    parser = argparse.ArgumentParser(
+        prog="python -m grm_tpu_torch results serve",
+        description="Serve an emitted results site over HTTP — the "
+                    "reference's embedded analysis-page server "
+                    "(ThreadingHTTPServer on port 5503, src/app.py:114-122) "
+                    "without the WebView2 browser.",
+    )
+    parser.add_argument("--site-dir", required=True,
+                        help="Directory written by `grm results site`.")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=5503,
+                        help="TCP port (default 5503, the reference's; "
+                             "0 picks an ephemeral port).")
+    args = parser.parse_args(argv)
+
+    from .results_site import serve_site
+
+    server = serve_site(args.site_dir, host=args.host, port=args.port)
+    url = "http://%s:%d/" % server.server_address[:2]
+    print("Serving results site at %s (ctrl-c to stop)" % url, flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+# ---------------------------------------------------------------------------
+# settings commands (the GUI settings page's persistence,
+# src/app.py:62-64, 213-223)
+# ---------------------------------------------------------------------------
+def _cmd_settings_show(argv):
+    import json
+
+    from .settings import load_settings, settings_path
+
+    argparse.ArgumentParser(
+        prog="python -m grm_tpu_torch settings show",
+        description="Print the persisted settings.").parse_args(argv)
+    print("# %s" % settings_path())
+    print(json.dumps(load_settings(), indent=2))
+
+
+def _cmd_settings_get(argv):
+    from .settings import get_setting
+
+    parser = argparse.ArgumentParser(prog="python -m grm_tpu_torch settings get")
+    parser.add_argument("key", help="e.g. amr_database, amr_date")
+    args = parser.parse_args(argv)
+    value = get_setting(args.key)
+    if value is None:
+        print("Error: unknown setting %r" % args.key)
+        sys.exit(1)
+    print(value)
+
+
+def _cmd_settings_set(argv):
+    from .settings import set_setting, settings_path
+
+    parser = argparse.ArgumentParser(prog="python -m grm_tpu_torch settings set")
+    parser.add_argument("key")
+    parser.add_argument("value")
+    args = parser.parse_args(argv)
+    set_setting(args.key, args.value)
+    print("Saved %s=%s to %s" % (args.key, args.value, settings_path()))
+
+
 _COMMANDS = {
     ("dataset", "create"): _cmd_dataset_create,
     ("dataset", "split"): _cmd_dataset_split,
@@ -694,7 +896,34 @@ _COMMANDS = {
     ("learn", "tree"): _cmd_learn_tree,
     ("kmer", "count"): _cmd_kmer_count,
     ("kmer", "matrix"): _cmd_kmer_matrix,
+    ("collect", "amr"): _cmd_collect_amr,
+    ("collect", "genomes"): _cmd_collect_genomes,
+    ("results", "site"): _cmd_results_site,
+    ("results", "serve"): _cmd_results_serve,
+    ("settings", "show"): _cmd_settings_show,
+    ("settings", "get"): _cmd_settings_get,
+    ("settings", "set"): _cmd_settings_set,
 }
+
+# grm's informational flags (bin/kover/kover:1095-1151), with its texts.
+_CITE = (
+    "The algorithms implemented by this framework were introduced "
+    "in:\n\n"
+    "Drouin, A. et al. (2019). Interpretable genotype-to-phenotype "
+    "classifiers with performance guarantees. Scientific Reports, "
+    "9(1), 4071.\n\n"
+    "Drouin, A. et al. (2016). Predictive computational phenotyping "
+    "and biomarker discovery using reference-free genome "
+    "comparisons. BMC Genomics, 17(1), 754."
+)
+_LICENSE = (
+    "grm-tpu is free software: you can redistribute it and/or "
+    "modify it under the terms of the GNU General Public License "
+    "as published by the Free Software Foundation, either version "
+    "3 of the License, or (at your option) any later version. It "
+    "is distributed WITHOUT ANY WARRANTY; see "
+    "<http://www.gnu.org/licenses/> for details."
+)
 
 
 def main(argv=None):
@@ -705,6 +934,13 @@ def main(argv=None):
     )
     top.add_argument("command", choices=sorted({c for c, _ in _COMMANDS}))
     top.add_argument("subcommand", choices=sorted({s for _, s in _COMMANDS}))
+    top.add_argument("--version", action="version", version="grm-tpu 0.1.0")
+    if argv and argv[0] == "--cite":
+        print(_CITE)
+        return
+    if argv and argv[0] == "--license":
+        print(_LICENSE)
+        return
     if len(argv) < 2 or (argv[0], argv[1]) not in _COMMANDS:
         top.parse_args(argv[:2] or ["-h"])
         return

@@ -1,4 +1,4 @@
-from .artifact import GrmDataset, MemoryArtifact  # noqa: F401
+from .artifact import GrmDataset, MemoryArtifact, as_dataset  # noqa: F401
 from .create import (  # noqa: F401
     from_contigs,
     from_numpy_artifact,

@@ -27,7 +27,7 @@ from ..device import resolve_device
 from ..ops.popcount import BitMatrix, StreamingBitMatrix
 from ..utils import unpack_binary_bytes_from_ints
 
-__all__ = ["GrmDataset", "MemoryArtifact", "MemoryDataset"]
+__all__ = ["GrmDataset", "MemoryArtifact", "MemoryDataset", "as_dataset"]
 
 _MEMORY_SERIAL = itertools.count()
 
@@ -322,6 +322,19 @@ class GrmDataset:
         dense = dense[:, inverse]
         dense[:, invert] = 1 - dense[:, invert]
         return dense
+
+
+def as_dataset(source, device=None):
+    """``source`` itself where it is a :class:`GrmDataset`, so that the
+    matrix it has loaded serves again (``device``, where given, must be its
+    own); else a :class:`GrmDataset` over the artifact ``source`` on
+    ``device``."""
+    if not isinstance(source, GrmDataset):
+        return GrmDataset(source, device=device)
+    if device is not None and resolve_device(device) != source.device:
+        raise ValueError("the dataset lies on %s, not %s"
+                         % (source.device, device))
+    return source
 
 
 def _parallel_gzip_read(ds):

@@ -25,7 +25,7 @@ from math import ceil
 
 import numpy as np
 
-from .artifact import GrmDataset
+from .artifact import as_dataset
 from ..utils import minimum_uint_size
 
 __all__ = ["split_with_ids", "split_with_proportion"]
@@ -49,13 +49,14 @@ def split_with_proportion(input, split_name, train_prop, random_seed, n_folds=0,
                           progress_callback=None, device=None):
     """Random train/test split by proportion (split.py:86-121).
 
-    ``input`` is an artifact path or a ``MemoryArtifact``; ``device``
+    ``input`` is an artifact path, a ``MemoryArtifact`` or a ``GrmDataset``
+    (whose loaded matrix serves again); ``device``
     (default ``"cuda"``) runs the risk-table sweep."""
     warning_callback, error_callback, progress_callback = _callbacks(
         warning_callback, error_callback, progress_callback
     )
     random_generator = np.random.RandomState(random_seed)
-    dataset = GrmDataset(input, device=device)
+    dataset = as_dataset(input, device=device)
 
     n_genomes = dataset.genome_count
     n_train = int(ceil(train_prop * n_genomes))
@@ -77,7 +78,7 @@ def split_with_ids(input, split_name, train_ids_file, test_ids_file,
         warning_callback, error_callback, progress_callback
     )
     random_generator = np.random.RandomState(random_seed)
-    dataset = GrmDataset(input, device=device)
+    dataset = as_dataset(input, device=device)
     idx_by_genome_id = {g: i for i, g in enumerate(dataset.genome_identifiers)}
 
     def _parse_ids(ids_file, learning_step):

@@ -29,7 +29,7 @@ from math import sqrt
 
 import numpy as np
 
-from ...dataset.artifact import GrmDataset
+from ...dataset.artifact import as_dataset
 from ...utils import parse_kmer_blacklist
 from ..bounds import cart_bound
 from ..cart import (
@@ -588,8 +588,10 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
                warning_callback=None, error_callback=None, device=None):
     """Learn a CART model (reference entry point experiment_cart.py:521-646).
 
-    ``dataset_file`` is an artifact path or an in-memory artifact
-    (:func:`grm_tpu_torch.dataset.from_numpy_artifact`). ``device``
+    ``dataset_file`` is an artifact path, an in-memory artifact
+    (:func:`grm_tpu_torch.dataset.from_numpy_artifact`) or a
+    :class:`~grm_tpu_torch.dataset.GrmDataset`, whose loaded matrix serves
+    again. ``device``
     (default ``"cuda"``, which raises without CUDA; ``"cpu"`` runs the
     kernels' plain versions) holds the bit matrix and runs every sweep.
     ``n_cpu`` is accepted for API compatibility.
@@ -623,7 +625,7 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
     if progress_callback is None:
         progress_callback = lambda t, p: None
 
-    dataset = GrmDataset(dataset_file, device=device)
+    dataset = as_dataset(dataset_file, device=device)
     rule_blacklist = _find_rule_blacklist(dataset, kmer_blacklist_file,
                                           warning_callback)
 

@@ -25,7 +25,7 @@ from itertools import product
 import numpy as np
 import torch
 
-from ...dataset.artifact import GrmDataset
+from ...dataset.artifact import as_dataset
 from ...ops.popcount import masks_to_tensor
 from ...parallel.mesh import scm_fit_batch_device
 from ...parallel.scm_device import build_packed_mask
@@ -720,8 +720,10 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
               device=None):
     """Learn an SCM model (reference entry point experiment_scm.py:674-889).
 
-    ``dataset_file`` is an artifact path or an in-memory artifact
-    (:func:`grm_tpu_torch.dataset.from_numpy_artifact`). ``device``
+    ``dataset_file`` is an artifact path, an in-memory artifact
+    (:func:`grm_tpu_torch.dataset.from_numpy_artifact`) or a
+    :class:`~grm_tpu_torch.dataset.GrmDataset`, whose loaded matrix serves
+    again. ``device``
     (default ``"cuda"``, which raises without CUDA; ``"cpu"`` runs the
     kernels' plain versions) holds the bit matrix and runs every sweep.
     ``n_cpu`` is accepted for API compatibility; the HP grid runs
@@ -756,7 +758,7 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
     model_type = np.unique(np.atleast_1d(model_type))
     p = np.unique(np.atleast_1d(p))
 
-    dataset = GrmDataset(dataset_file, device=device)
+    dataset = as_dataset(dataset_file, device=device)
     rule_blacklist = _find_rule_blacklist(dataset, kmer_blacklist_file,
                                           warning_callback)
 

@@ -5,7 +5,10 @@ Port of ``grm_tpu/ops/popcount.py``. The matrix is stored as a (W, K)
 right shift on the CPU, so words travel as int32 bit patterns), MSB-first:
 genome ``g`` is bit ``31 - g % 32`` of word row ``g // 32``. The on-disk
 uint64 layout converts with :func:`u64_matrix_to_u32`, word for word as
-``grm_tpu.ops.popcount.u64_matrix_to_u32`` does.
+``grm_tpu.ops.popcount.u64_matrix_to_u32`` does; :meth:`BitMatrix.from_u64`
+splits it on the card instead (:func:`split_u64`: column chunks through a
+pinned staging ring, each split by the hand-written CUDA kernel
+``csrc/deinterleave.cu``).
 
 The sweep, for C row-selection masks at once::
 
@@ -23,6 +26,7 @@ chunk it uploads.
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,6 +46,10 @@ __all__ = [
     "popcount_rows",
     "masks_to_tensor",
     "u64_matrix_to_u32",
+    "deinterleave_u64",
+    "deinterleave_u64_plain",
+    "split_u64",
+    "load_chunk_cols",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -49,7 +57,16 @@ _SIGNATURES = {
     "grm_popcount_colsum": ([_P, _I, _L, _P, _I, _P, _P], _I),
     "grm_popcount_colsum_pairs": ([_P, _I, _L, _P, _P, _I, _I, _P, _P], _I),
 }
+_DEINTERLEAVE_SIGNATURES = {
+    "grm_deinterleave_u64": ([_P, _I, _L, _P, _I, _L, _L, _P], _I),
+}
 _SMEM_WORDS = 12288  # 48 KB of masks per launch: no opt-in attribute needed
+# Bytes of uint64 words per staged chunk of BitMatrix.from_u64: two such
+# chunks on the card beside the matrix, two in pinned host memory.
+LOAD_CHUNK_BYTES = 64 << 20
+# Host threads that copy a chunk into its staging buffer (numpy copies
+# without the GIL); a load under 8 MiB copies on the calling thread.
+FILL_THREADS = 4
 
 
 def u64_matrix_to_u32(m64):
@@ -59,6 +76,144 @@ def u64_matrix_to_u32(m64):
     m64 = np.ascontiguousarray(m64, dtype=np.uint64)
     out = np.empty((m64.shape[0] * 2, m64.shape[1]), dtype=np.uint32)
     split_u64_into(out, m64, 0, m64.shape[1])
+    return out
+
+
+def deinterleave_u64_plain(raw, n_words):
+    """Plain PyTorch version of :func:`deinterleave_u64`: ``raw`` (W64, 2c)
+    int32, the little-endian words of a (W64, c) uint64 matrix, -> (n_words,
+    c) int32, row 2w the high halves of row w, row 2w + 1 the low halves;
+    rows from ``n_words`` on are dropped."""
+    w64, c2 = raw.shape
+    halves = raw.view(w64, c2 // 2, 2)
+    return torch.stack((halves[..., 1], halves[..., 0]), dim=1).reshape(
+        2 * w64, c2 // 2)[:n_words]
+
+
+def deinterleave_u64(raw, out, lo):
+    """Split ``raw``, (W64, 2c) int32, the little-endian words of a (W64, c)
+    uint64 chunk, into columns [lo, lo + c) of ``out``, the (n_words, K)
+    int32 matrix (n_words is 2 W64 or 2 W64 - 1), as
+    :func:`deinterleave_u64_plain` splits it. A CUDA tensor launches the
+    kernel ``csrc/deinterleave.cu`` once; a CPU tensor takes the plain
+    version. Returns ``out``."""
+    _check_matrix(out)
+    if raw.dtype != torch.int32 or raw.dim() != 2 or raw.shape[1] % 2:
+        raise ValueError("raw must be a (W64, 2c) int32 tensor")
+    w64, c = raw.shape[0], raw.shape[1] // 2
+    n_words, k = out.shape
+    if n_words not in (2 * w64, 2 * w64 - 1) or not 0 <= lo <= k - c:
+        raise ValueError("a (%d, %d) chunk does not fit columns [%d, %d) of "
+                         "a (%d, %d) matrix" % (w64, c, lo, lo + c, n_words, k))
+    if raw.device != out.device:
+        raise ValueError("raw and out must be on one device")
+    if out.device.type != "cuda":
+        out[:, lo:lo + c] = deinterleave_u64_plain(raw, n_words)
+        return out
+    if not raw.is_contiguous():
+        raise ValueError("raw must be contiguous")
+    if w64 > 65535:
+        raise ValueError("too many uint64 rows for one launch")
+    if c == 0 or w64 == 0:
+        return out
+    lib = _build.library("deinterleave", _DEINTERLEAVE_SIGNATURES)
+    with torch.cuda.device(out.device):
+        _build.check(lib.grm_deinterleave_u64(
+            raw.data_ptr(), w64, c, out.data_ptr(), n_words, k, lo,
+            _stream(out)), "deinterleave_u64")
+        _build.launches["deinterleave_u64"] += 1
+    return out
+
+
+def load_chunk_cols(w64):
+    """Columns per staged chunk of :func:`split_u64` for ``w64`` uint64
+    rows: as many as fill :data:`LOAD_CHUNK_BYTES`, rounded down to a
+    multiple of 4 (the kernel's 16-byte stores), at least 4."""
+    return max(4, LOAD_CHUNK_BYTES // (8 * max(int(w64), 1)) // 4 * 4)
+
+
+def _fill(dst, src, pool, threads):
+    """``np.copyto(dst, src)`` into native byte order, the columns split
+    across ``threads`` threads of ``pool`` where there is a pool."""
+    if pool is None:
+        np.copyto(dst, src, casting="unsafe")
+        return
+    step = -(-dst.shape[1] // threads)
+    list(pool.map(lambda a: np.copyto(dst[:, a:a + step], src[:, a:a + step],
+                                      casting="unsafe"),
+                  range(0, dst.shape[1], step)))
+
+
+def split_u64(m64, n_words, device):
+    """The first ``n_words`` 32-bit word rows of the uint64 MSB-first
+    matrix ``m64`` (any byte order and strides), as a (n_words, K) int32
+    tensor on ``device``: the words of :func:`u64_matrix_to_u32`.
+
+    The matrix goes through in column chunks (:func:`load_chunk_cols`) and
+    a ring of two staging buffers. On a CUDA device they are pinned: the
+    host copies chunk i + 1 into its buffer (native byte order) while chunk
+    i is copied to the card on a copy stream of its own and split there by
+    :func:`deinterleave_u64` on the current stream, which waits on an event
+    for the copy. The host waits on an event before it refills a buffer
+    whose copy may still run, and the copy stream on another before it
+    overwrites a device buffer the kernel may still read. The card holds
+    the matrix plus two chunks. The host's copy of a chunk runs on
+    :data:`FILL_THREADS` threads, a slice of its columns each. On the CPU
+    the same chunks take the plain version."""
+    m64 = np.asarray(m64)
+    if m64.ndim != 2:
+        raise ValueError("m64 must be a 2-D uint64 matrix")
+    if m64.dtype.kind != "u" or m64.dtype.itemsize != 8:
+        m64 = m64.astype(np.uint64)
+    device = resolve_device(device)
+    w64, k = -(-int(n_words) // 2), m64.shape[1]
+    if not 0 <= w64 <= m64.shape[0]:
+        raise ValueError("%d word rows need %d uint64 rows, not %d"
+                         % (n_words, w64, m64.shape[0]))
+    out = torch.empty((n_words, k), dtype=torch.int32, device=device)
+    if n_words == 0 or k == 0:
+        return out
+    ch = min(load_chunk_cols(w64), k)
+    n_chunks = -(-k // ch)
+    n_bufs = min(2, n_chunks)
+    cuda = device.type == "cuda"
+    threads = FILL_THREADS
+    pool = (ThreadPoolExecutor(threads) if threads > 1
+            and 8 * w64 * k >= 8 << 20 else None)
+    host = [torch.empty(2 * w64 * ch, dtype=torch.int32, pin_memory=cuda)
+            for _ in range(n_bufs)]
+    if cuda:
+        stage = [torch.empty(2 * w64 * ch, dtype=torch.int32, device=device)
+                 for _ in range(n_bufs)]
+        compute = torch.cuda.current_stream(device)
+        copy = torch.cuda.Stream(device)
+        copied = [torch.cuda.Event() for _ in range(n_bufs)]
+        split = [torch.cuda.Event() for _ in range(n_bufs)]
+    try:
+        for ci in range(n_chunks):
+            b, lo = ci % n_bufs, ci * ch
+            c = min(ch, k - lo)
+            if cuda and ci >= n_bufs:
+                copied[b].synchronize()  # chunk ci - 2's copy left buffer b
+            raw = host[b][:2 * w64 * c]
+            _fill(raw.numpy().view(np.uint64).reshape(w64, c),
+                  m64[:w64, lo:lo + c], pool, threads)
+            if cuda:
+                with torch.cuda.stream(copy):
+                    if ci >= n_bufs:  # chunk ci - 2's split has read stage b
+                        copy.wait_event(split[b])
+                    stage[b][:raw.numel()].copy_(raw, non_blocking=True)
+                    copied[b].record(copy)
+                compute.wait_event(copied[b])
+                raw = stage[b][:raw.numel()]
+            deinterleave_u64(raw.view(w64, 2 * c), out, lo)
+            if cuda:
+                split[b].record(compute)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+        if cuda:
+            compute.wait_stream(copy)
     return out
 
 
@@ -233,10 +388,12 @@ class BitMatrix:
 
     @classmethod
     def from_u64(cls, m64, n_rows, device=None):
-        """From the on-disk uint64 layout; word rows past the last genome's
-        (all padding bits) are dropped."""
-        n_words = -(-int(n_rows) // 32)
-        return cls(u64_matrix_to_u32(m64)[:n_words], n_rows, device=device)
+        """From the on-disk uint64 layout, split on the device
+        (:func:`split_u64`); word rows past the last genome's (all padding
+        bits) are dropped."""
+        m64 = np.asarray(m64)
+        n_words = min(-(-int(n_rows) // 32), 2 * m64.shape[0])
+        return cls(split_u64(m64, n_words, device), n_rows)
 
     @classmethod
     def from_dense(cls, dense01, device=None):

@@ -7,8 +7,8 @@ Port of ``grm_tpu/pipeline.py``. Two ingests:
   counted on the card (:func:`grm_tpu_torch.kmer.counter.count_fasta`),
   the union merged on the host into a
   :class:`~grm_tpu_torch.kmer.matrix.KmerMatrix`, which the
-  :class:`InMemoryDataset` uploads as a ``BitMatrix`` when it is first
-  asked for one;
+  :class:`InMemoryDataset` splits on the card
+  (``BitMatrix.from_u64``) when it is first asked for a ``BitMatrix``;
 - :meth:`InMemoryDataset.from_contigs_device` builds the packed presence
   matrix on the card (:mod:`grm_tpu_torch.parallel.device_build`) and
   returns a :class:`DeviceDataset`, whose matrix never leaves the card:
@@ -34,7 +34,7 @@ from .kmer.matrix import KmerMatrix, build_presence_matrix
 from .learning.metrics import get_binary_metrics
 from .learning.models import ConjunctionModel, DisjunctionModel, KmerRule
 from .ops.kmer import decode_kmers, encode_contigs
-from .ops.popcount import BitMatrix, masks_to_tensor, u64_matrix_to_u32
+from .ops.popcount import BitMatrix, masks_to_tensor
 from .parallel.device_build import (build_matrix_device,
                                     build_matrix_device_batched)
 from .parallel.mesh import scm_fit_batch_device
@@ -108,8 +108,8 @@ class InMemoryDataset:
         if sharding is not None:
             raise NotImplementedError(MESH_MESSAGE)
         if self._bm is None:
-            self._bm = BitMatrix(u64_matrix_to_u32(self.km.matrix),
-                                 self.km.n_genomes, device=self.device)
+            self._bm = BitMatrix.from_u64(self.km.matrix, self.km.n_genomes,
+                                          self.device)
         return self._bm
 
     def get_matrix_columns(self, columns):

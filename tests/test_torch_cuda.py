@@ -630,3 +630,52 @@ def test_streamed_cart_candidates_equal_resident(cuda):
         np.testing.assert_array_equal(g["winner_bits"], w["winner_bits"])
         np.testing.assert_array_equal(g["equiv"], w["equiv"])
     assert 17 in want[0]["equiv"] and 20001 in want[0]["equiv"]
+
+
+def test_deinterleave_kernel(cuda):
+    """The artifact's matrix split at phase 3's cases (an odd W64, a ragged
+    last chunk, one-column chunks, 32 x odd genomes, widths that are no
+    multiple of 4, no k-mer): the chunked split on the card against the
+    host split and the plain version, one launch a chunk; the wrapper alone
+    at an odd offset; the split behind a busy stream; the default width's
+    load under the matrix plus three chunks."""
+    smoke.deinterleave_cases(cuda, np.random.RandomState(14), _record)
+
+
+@pytest.mark.parametrize("n_rows,k,chunk_cols", [
+    (342, 200_003, None), (342, 200_003, 65_536), (96, 5001, 1000),
+    (5022, 40_000, 8192)])
+def test_from_u64_on_the_card_equals_cpu(cuda, monkeypatch, n_rows, k,
+                                         chunk_cols):
+    """BitMatrix.from_u64 on the card equals its CPU run, and one load
+    launches deinterleave_u64 once a chunk (once where one chunk holds
+    every column); ``chunk_cols`` makes LOAD_CHUNK_BYTES that small."""
+    from grm_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(n_rows + k)
+    w64 = -(-n_rows // 64)
+    m64 = np.frombuffer(rng.bytes(8 * w64 * k), np.uint64).reshape(w64, k)
+    if chunk_cols is not None:
+        monkeypatch.setattr(pc, "LOAD_CHUNK_BYTES", 8 * w64 * chunk_cols)
+    n0 = _build.launches["deinterleave_u64"]
+    got = pc.BitMatrix.from_u64(m64, n_rows, cuda)
+    torch.cuda.synchronize()
+    n_chunks = -(-k // pc.load_chunk_cols(w64))
+    assert _build.launches["deinterleave_u64"] - n0 == n_chunks
+    if chunk_cols is None and k * w64 * 8 <= pc.LOAD_CHUNK_BYTES:
+        assert n_chunks == 1
+    _same(got.data, pc.BitMatrix.from_u64(m64, n_rows, "cpu").data)
+
+
+def test_from_u64_peak_memory(cuda):
+    """A load of 342 x 4,000,001 in the default chunks (three, the last
+    ragged) holds at most the matrix plus three staging chunks on the card,
+    and gives the host split's words."""
+    rng = np.random.RandomState(3)
+    k = 4_000_001
+    m64 = np.frombuffer(rng.bytes(8 * 6 * k), np.uint64).reshape(6, k)
+    bm, peak, bound = smoke.load_peak(
+        lambda: pc.BitMatrix.from_u64(m64, 342, cuda), 11, k)
+    assert 0 < peak <= bound
+    _same(bm.data, torch.from_numpy(
+        pc.u64_matrix_to_u32(m64)[:11].view(np.int32)))

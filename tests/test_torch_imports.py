@@ -1,8 +1,9 @@
 """grm_tpu_torch imports neither JAX nor any grm_tpu module (nor h5py or
 pandas, which the GPU machine may lack: only the functions that write a
-file or read a TSV import them), and its entry points default to CUDA and
-raise without it, the k-mer counter, dataset creation and the ``dataset
-create`` command included. Runs in a fresh interpreter, because this test
+file or read a TSV import them; the AMR table, the results site, the
+settings and the profiling hooks run without either), and its entry points
+default to CUDA and raise without it, the k-mer counter, dataset creation
+and the ``dataset create`` command included. Runs in a fresh interpreter, because this test
 process has JAX loaded (tests/conftest.py)."""
 
 import os
@@ -74,8 +75,33 @@ for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
                "learning.experiments.cart_experiment", "ops.kmer",
                "ops.device_build", "parallel.device_build", "pipeline",
                "hostmem", "native.bindings", "kmer.counter", "kmer.matrix",
-               "dataset.create", "dataset.split"):
+               "dataset.create", "dataset.split", "collect", "collect.amr",
+               "collect.patric", "settings", "results_site", "profiling"):
     assert "grm_tpu_torch." + module in names, module
+
+# The host modules run with pandas, h5py and JAX blocked.
+import os, tempfile
+from grm_tpu_torch.collect.amr import AmrDatabase
+from grm_tpu_torch.profiling import StageTimer, throughput
+from grm_tpu_torch.results_site import _dataset_dims, write_site
+from grm_tpu_torch.settings import get_setting, set_setting
+
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["GRM_SETTINGS_PATH"] = os.path.join(tmp, "settings.json")
+    amr = os.path.join(tmp, "amr.txt")
+    with open(amr, "w") as f:
+        f.write("genome_id\tgenome_name\tantibiotic\tresistant_phenotype\t"
+                "measurement\tmeasurement_unit\n1.1\tE coli\tamp\tResistant\t"
+                "8\tmg/L\n")
+    db = AmrDatabase.load(amr)
+    db.export(db.select(numeric_phenotypes=True), tmp, "E coli", "amp")
+    set_setting("amr_database", amr)
+    assert get_setting("amr_database") == amr
+    assert _dataset_dims({"data": {"path": amr}}) == (None, None)
+    timer = StageTimer()
+    with timer.stage("load"):
+        throughput(1, 1, 1.0)
+    cli_main(["settings", "show"])
 print("imported", len(names))
 '''
 
@@ -87,4 +113,4 @@ def test_port_imports_no_jax_and_requires_cuda():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 39  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 45  # every module was imported
