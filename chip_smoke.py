@@ -7,8 +7,10 @@ three, the device ingest (contigs -> packed matrix on the card ->
 ``train_scm``) at 342 genomes of 4.4 Mbp, and dataset creation from the
 same genomes as FASTA files (``from_contigs`` -> split -> ``learn_SCM``),
 each loading path's matrix split on the card (``deinterleave_u64``) and
-timed apart; then ``collect amr`` and the results site through the
-port's CLI.
+timed apart; the four resident learn paths again on a mesh of four
+column shards of the one card, and the two-process matrix build over
+gloo; then ``collect amr`` and the results site through the port's
+CLI.
 
     python3 chip_smoke.py [--seed N]
 
@@ -109,6 +111,25 @@ Phases (any failure exits non-zero and prints no result):
    ``created`` aside), at k = 15, 31 and 33, with and without the
    singleton filter; and ``count_fasta(keep_counts=True)`` on the card the
    CPU's k-mers and counts.
+   Then meshes that name cuda:0 several times (the one card standing in
+   for several): ``learn_SCM`` with both device engines on a (1, 4) mesh
+   at 342 x 200,000 and on a (1, 8) mesh at 342 x 200,003 (K ragged over
+   the shards), ``learn_SCM(device-argmax)`` on a (2, 2) mesh (the scan
+   engine), ``learn_CART`` with both device engines on (1, 4) at two
+   classes and on the three-class artifact (whose gather regime must run
+   sharded), and a 1% k-mer blacklist through the SCM grid's and the CART
+   scorer's combines on (1, 4): each must give its unsharded run's whole
+   fingerprint. Then the multi-process build: two processes share the
+   card and exchange over gloo through a file store in a temporary
+   directory, each counting its round-robin half of the 40 genomes at k =
+   31, without and with the singleton filter; both ranks' union and matrix
+   must equal ``build_presence_matrix`` over the same genomes byte for
+   byte, and a genome list that differs between the ranks must fail fast
+   on both. Then the CLI on one card: ``learn scm --engine device
+   --n-devices 2`` exits 1 with "exceeds the 1 available local device(s)"
+   before it loads anything, and ``--n-devices 1`` over a 342 x 20,000
+   artifact in memory (by its ``memory://`` path) places nothing on a mesh
+   and writes the model and metrics of the command without the flag.
 5. The main paths at full scale: 342 genomes x 9,600,000 k-mers (the
    published median, BASELINE.md), 5-fold split, built in memory from
    --seed with the benchmark's recipe (a planted 3-marker conjunction plus
@@ -124,7 +145,14 @@ Phases (any failure exits non-zero and prints no result):
    ``learn_CART`` with engine "device" again, the budget at 512 MiB so
    that the 422 MB matrix streams from pinned host memory in the default
    chunks of 2^21 columns (5, the last ragged); each must give its
-   resident path's fingerprint. The five resident paths load the artifact
+   resident path's fingerprint; then ``device-sharded``,
+   ``device-argmax-sharded``, ``tree-device-sharded`` and
+   ``tree-device-argmax-sharded``: the four paths before them on a (1, 4)
+   mesh of cuda:0, each loading its own sharded matrix (each shard's
+   columns split straight onto its device, two ``deinterleave_u64``
+   launches a shard), each giving its unsharded path's fingerprint and
+   printing its launches beside the unsharded ones. The resident and
+   sharded paths load the artifact
    on their own first (the ``load`` stage, timed with the port's
    StageTimer: ``ds.bit_matrix``, the u64 bytes to the device matrix
    through the pinned staging ring and deinterleave_u64, one load of 7
@@ -163,7 +191,12 @@ Phases (any failure exits non-zero and prints no result):
    markers; each stage's wall is printed with the card's name and power
    limit (FASTA encode, counting on the card with its transfers, host
    merge, artifact write, split, learn), with the whole create's Mbp/s
-   and the host's peak RSS.
+   and the host's peak RSS. Then ``build-distributed``: two processes
+   (``--build-worker``) on the card over ``create-contigs``' FASTA files
+   (k = 31, the singleton filter), each counting its round-robin half;
+   both ranks' union and matrix must equal ``create-contigs``'; each
+   process's counting, exchange and merge walls, launches and peak RSS
+   are printed.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
@@ -208,8 +241,8 @@ Phases (any failure exits non-zero and prints no result):
 The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
-the sum of the nine paths' counts and ``launches_by_path`` gives each
-path's own. Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
+the sum of the paths' counts and ``launches_by_path`` gives each path's
+own (``build-distributed``'s are its two processes' sums). Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
 import argparse
@@ -281,6 +314,11 @@ MERGE_CASE_SPLITS = ((0, 32, 64, 70), (0, 64, 70))
 STREAM_CASE = (11, 7 * 4096 + 123, 4096)
 SMALL_STREAM = (1 << 20, 1 << 16)  # GRM_HBM_BUDGET_BYTES, chunk columns
 STREAM_BUDGET = 512 << 20
+# Meshes of a repeated cuda:0 (the one-card machine's stand-in for several
+# cards): phase 5's sharded paths take MESH_CARDS column shards; phase 4's
+# (1, 8) mesh runs on SHARDED_KMERS columns, ragged over the shards.
+MESH_CARDS = 4
+SHARDED_KMERS = 200_003
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 POPC_PER_CLOCK_PER_SM = 16  # CUDA C++ Programming Guide, throughput, cc 9.0
 
@@ -346,7 +384,12 @@ PATH_KERNELS = {
                       "compact_columns", "popcount_colsum"),
     "create-contigs": ("kmer_canon", "deinterleave_u64", "scm_sweep_sbmax",
                        "popcount_colsum_pairs"),
+    "build-distributed": ("kmer_canon",),
 }
+# The sharded paths run their unsharded path's kernels, once a shard.
+SHARDED_PATHS = ("device", "device-argmax", "tree-device",
+                 "tree-device-argmax")
+PATH_KERNELS.update({p + "-sharded": PATH_KERNELS[p] for p in SHARDED_PATHS})
 # The CUDA function each wrapper launches, as torch.profiler names it.
 KERNEL_FUNCTIONS = {
     "popcount_colsum": "colsum_kernel",
@@ -620,9 +663,10 @@ def fingerprint(out):
     }
 
 
-def learn(mem, engine, device):
+def learn(mem, engine, device, mesh=None, blacklist=None):
     """learn_SCM on ``mem``, an in-memory artifact or a GrmDataset (whose
-    loaded matrix then serves)."""
+    loaded matrix then serves), over ``mesh`` where one is given, with the
+    k-mer blacklist file ``blacklist``."""
     from grm_tpu_torch.dataset import as_dataset
     from grm_tpu_torch.learning.experiments import learn_SCM
 
@@ -632,10 +676,12 @@ def learn(mem, engine, device):
         max_rules=MAX_RULES, max_equiv_rules=10000,
         parameter_selection="cv", random_seed=42, bound_delta=0.05,
         bound_max_genome_size=as_dataset(mem, device).kmer_count,
-        engine=engine, device=device)
+        engine=engine, mesh=mesh, kmer_blacklist_file=blacklist,
+        device=device)
 
 
-def learn_tree(mem, engine, device, criterion, max_depth):
+def learn_tree(mem, engine, device, criterion, max_depth, mesh=None,
+               blacklist=None):
     """learn_CART on ``mem``, as :func:`learn` takes it."""
     from grm_tpu_torch.dataset import as_dataset
     from grm_tpu_torch.learning.experiments import learn_CART
@@ -647,7 +693,8 @@ def learn_tree(mem, engine, device, criterion, max_depth):
         max_depth=[max_depth], min_samples_split=[2],
         class_importance=[{c: 1.0 for c in range(n_classes)}],
         bound_delta=0.05, bound_max_genome_size=ds.kmer_count,
-        parameter_selection="cv", engine=engine, device=device)
+        kmer_blacklist_file=blacklist, parameter_selection="cv",
+        engine=engine, mesh=mesh, device=device)
 
 
 def tree_fingerprint(out, selection=True):
@@ -2499,7 +2546,7 @@ def count_profile(specs, device, card):
         log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
 
 
-def run_create(device, seed, paths, ingest, card):
+def run_create(device, seed, paths, ingest, card, then=None):
     """Phase 5, the ``create-contigs`` path: ``ingest-device``'s genomes
     as FASTA files of one contig (as ingest-device counts them) with their
     labels as a metadata TSV (set-up), then
@@ -2508,7 +2555,8 @@ def run_create(device, seed, paths, ingest, card):
     ``learn_SCM(engine="device")``. Its launches go into ``paths``. Fails
     unless kmer_canon ran once a genome, the union and the matrix (genome
     rows mapped by id) equal ``ingest-device``'s and the three planted
-    markers are learnt."""
+    markers are learnt. ``then(specs)``, where given, runs on the FASTA
+    files before they are deleted."""
     import resource
 
     import torch
@@ -2556,6 +2604,8 @@ def run_create(device, seed, paths, ingest, card):
         paths["create-contigs"] = dict(_build.launches)
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         count_profile(specs[:8], device, card)
+        if then is not None:
+            then(specs)
     n_genomes = len(codes_list)
     mbp = sum(len(c) for c in codes_list) / 1e6
     t = timer.stages
@@ -3121,6 +3171,418 @@ def profile_learn(what, run_once, wall, want, trace_dir=None):
     return prof
 
 
+# -- meshes and the multi-process build ---------------------------------------
+
+def card_mesh(device, n, rows=1):
+    """A (rows, n / rows) mesh that names ``device`` n times (cuda:0 on the
+    one-card machine): the shards share the card."""
+    import torch
+
+    from grm_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device.type, 0) if device.type == "cuda" else device
+    return make_mesh(n, row_devices=rows, devices=[dev] * n)
+
+
+def write_blacklist(mem, share, seed, path):
+    """A k-mer blacklist file of ``share`` of the artifact's k-mers, chosen
+    from ``seed``. Returns the path."""
+    seqs = mem["kmer_sequences"].data
+    rng = np.random.RandomState(seed)
+    pick = rng.choice(len(seqs), max(1, int(len(seqs) * share)),
+                      replace=False)
+    with open(path, "w") as f:
+        f.write("".join(">b%d\n%s\n" % (i, _s(seqs[c]))
+                        for i, c in enumerate(np.sort(pick))))
+    return path
+
+
+def _sharded_case(what, run, want, device):
+    """``run()`` with the launch counts from 0; fails unless its
+    fingerprint is ``want``. Returns a summary line."""
+    import torch
+
+    from grm_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t0 = time.time()
+    got = run()
+    torch.cuda.synchronize() if device.type == "cuda" else None
+    wall = time.time() - t0
+    if got != want:
+        raise AssertionError("%s: sharded != unsharded:\n%s\n%s"
+                             % (what, got, want))
+    launched = {k: v for k, v in _build.launches.items() if v}
+    modes = sorted({kname for kname, _, _ in _build.exact_frontiers})
+    return "%s == unsharded (%.1f s; launches %s%s)" % (
+        what, wall, launched, "; exact %s" % modes if modes else "")
+
+
+def check_sharded_small(device, seed, small, tri):
+    """Phase 4, meshes of a repeated card: every sharded engine must give
+    its unsharded run's fingerprint (exact engines the whole fingerprint,
+    argmax engines too: the combines keep the lowest column on ties).
+    ``learn_SCM`` with both device engines on a (1, 4) mesh at 342 x
+    200,000 and on a (1, 8) mesh at 342 x 200,003 (8 shards of 25,001, the
+    last with 8 padding columns); the scan engine on a (2, 2) mesh; a 1%
+    k-mer blacklist through the grid and CART combines; ``learn_CART``
+    with both engines on (1, 4) at two classes and on the three-class
+    artifact, whose gather regime must run sharded. Returns summary
+    lines."""
+    m4, m8, m22 = (card_mesh(device, 4), card_mesh(device, 8),
+                   card_mesh(device, 4, rows=2))
+    out = []
+    for engine in ("device", "device-argmax"):
+        want = fingerprint(learn(small, engine, device))
+        out.append(_sharded_case(
+            "learn_SCM(%s) on (1, 4)" % engine,
+            lambda: fingerprint(learn(small, engine, device, m4)), want,
+            device))
+        if engine == "device-argmax":
+            out.append(_sharded_case(
+                "learn_SCM(device-argmax) on (2, 2), the scan engine",
+                lambda: fingerprint(learn(small, engine, device, m22)),
+                want, device))
+    ragged = build_artifact(MEDIAN_GENOMES, SHARDED_KMERS, seed, device)
+    for engine in ("device", "device-argmax"):
+        want = fingerprint(learn(ragged, engine, device))
+        out.append(_sharded_case(
+            "learn_SCM(%s) on (1, 8), K = %d" % (engine, SHARDED_KMERS),
+            lambda: fingerprint(learn(ragged, engine, device, m8)), want,
+            device))
+    del ragged
+    for engine in ("device", "device-argmax"):
+        want = tree_fingerprint(learn_tree(small, engine, device,
+                                           list(CART_CRITERIA), SMALL_DEPTH))
+        out.append(_sharded_case(
+            "learn_CART(%s) on (1, 4)" % engine,
+            lambda: tree_fingerprint(learn_tree(
+                small, engine, device, list(CART_CRITERIA), SMALL_DEPTH,
+                m4)), want, device))
+        want = tree_fingerprint(learn_tree(tri, engine, device,
+                                           list(CART_CRITERIA), SMALL_DEPTH))
+        out.append(_sharded_case(
+            "learn_CART(%s) on (1, 4), 3 classes" % engine,
+            lambda: tree_fingerprint(learn_tree(
+                tri, engine, device, list(CART_CRITERIA), SMALL_DEPTH, m4)),
+            want, device))
+        if (engine == "device" and device.type == "cuda"
+                and "cart_exact_select:gather" not in out[-1]):
+            raise AssertionError("the sharded three-class run took no "
+                                 "gather regime: %s" % out[-1])
+    with tempfile.TemporaryDirectory() as tmp:
+        bl = write_blacklist(small, 0.01, seed, os.path.join(tmp, "bl.fa"))
+        want = fingerprint(learn(small, "device-argmax", device,
+                                 blacklist=bl))
+        out.append(_sharded_case(
+            "learn_SCM(device-argmax) on (1, 4), a 1% k-mer blacklist",
+            lambda: fingerprint(learn(small, "device-argmax", device, m4,
+                                      blacklist=bl)), want, device))
+        want = tree_fingerprint(learn_tree(
+            small, "device-argmax", device, list(CART_CRITERIA), SMALL_DEPTH,
+            blacklist=bl))
+        out.append(_sharded_case(
+            "learn_CART(device-argmax) on (1, 4), a 1% k-mer blacklist",
+            lambda: tree_fingerprint(learn_tree(
+                small, "device-argmax", device, list(CART_CRITERIA),
+                SMALL_DEPTH, m4, blacklist=bl)), want, device))
+    return out
+
+
+class RssSampler:
+    """The process's resident set sampled every 20 ms on a thread (from
+    /proc/self/statm: ru_maxrss keeps the parent's peak across the exec);
+    :meth:`stop` returns the largest sample in GB."""
+
+    def __init__(self):
+        import threading
+
+        self.peak = 0
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        self.peak = max(self.peak, pages * os.sysconf("SC_PAGE_SIZE"))
+
+    def _run(self):
+        while not self._done.wait(0.02):
+            self._sample()
+
+    def stop(self):
+        self._done.set()
+        self._thread.join()
+        self._sample()
+        return self.peak / 1e9
+
+
+def build_worker(spec_path):
+    """One process of the multi-process build (``--build-worker``): joins
+    the gloo group through the file store ``spec["store"]``, runs
+    ``build_presence_matrix_distributed`` on the card once a filter
+    setting, saves each union and matrix, and prints one JSON line: each
+    build's stage walls, the launches, the peak RSS. A failure exits 3
+    after ``GRM_FAULT:`` and its message on standard error."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from grm_tpu_torch.ops import _build
+    from grm_tpu_torch.parallel.build import build_presence_matrix_distributed
+    from grm_tpu_torch.parallel.distributed import initialize
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = spec["rank"]
+    rss = RssSampler()
+    initialize(spec["store"], 2, rank, timeout=spec["timeout"])
+    out = {"rank": rank}
+    try:
+        for fs in spec["filters"]:
+            timings = {}
+            t0 = time.time()
+            km = build_presence_matrix_distributed(
+                [tuple(x) for x in spec["specs"]], spec["k"],
+                filter_singleton=fs, device=spec["device"], timings=timings)
+            timings["wall"] = time.time() - t0
+            np.save("%s%d_%d_kmers.npy" % (spec["out"], rank, fs), km.kmers)
+            np.save("%s%d_%d_matrix.npy" % (spec["out"], rank, fs),
+                    km.matrix)
+            out["filter=%d" % fs] = timings
+    except Exception as e:  # a faulted worker must not wait on its peer
+        sys.stderr.write("GRM_FAULT: %s\n" % e)
+        sys.stderr.flush()
+        os._exit(3)
+    out["launches"] = {k: v for k, v in _build.launches.items() if v}
+    out["peak_rss_gb"] = rss.stop()
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_build_workers(tmp, specs_by_rank, k, filters, device, timeout):
+    """Two ``--build-worker`` processes over a file store in ``tmp``, each
+    with its own genome list. Returns [(returncode, JSON out or None,
+    stderr)] per rank; kills both past ``timeout`` seconds."""
+    store = tempfile.mkdtemp(dir=tmp, prefix="store_")
+    procs = []
+    for rank in range(2):
+        spec = os.path.join(store, "spec%d.json" % rank)
+        with open(spec, "w") as f:
+            json.dump({"rank": rank, "store": "file://" + os.path.join(
+                store, "gloo"), "timeout": timeout,
+                "specs": specs_by_rank[rank], "k": k, "filters": filters,
+                "device": str(device), "out": os.path.join(store, "km_")},
+                f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--build-worker",
+             spec], stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    results = []
+    deadline = time.time() + timeout + 120
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=max(1.0, deadline - time.time()))
+            lines = [l for l in so.decode().splitlines() if l.startswith("{")]
+            results.append((p.returncode, json.loads(lines[-1]) if lines
+                            else None, se.decode()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results.append(os.path.join(store, "km_"))
+    return results
+
+
+def _worker_matrix(prefix, rank, fs):
+    return (np.load("%s%d_%d_kmers.npy" % (prefix, rank, fs)),
+            np.load("%s%d_%d_matrix.npy" % (prefix, rank, fs)))
+
+
+def check_distributed_small(device, seed, n_genomes=SMALL_INGEST[0],
+                            length=SMALL_INGEST[1]):
+    """Phase 4, the multi-process build: two processes share the card and
+    exchange over gloo through a file store; each counts its round-robin
+    half of ``n_genomes`` genomes of ``length`` bases at k = 31, without and
+    with the singleton filter. Both ranks' union and matrix must equal
+    ``build_presence_matrix`` over the same genomes, byte for byte; a genome
+    list that differs between the ranks must fail fast on both. Returns a
+    summary line."""
+    from grm_tpu_torch.kmer.counter import count_fasta
+    from grm_tpu_torch.kmer.matrix import build_presence_matrix
+
+    scale = length / INGEST_LENGTH
+    codes_list, _, _ = ingest_genomes(
+        n_genomes, length, max(1, round(INGEST_SNPS * scale)),
+        max(2, round(INGEST_POOL * scale)), seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = write_fasta(tmp, codes_list)
+        gks = [count_fasta(p, INGEST_K, genome_id=g, device=device)
+               for g, p in specs]
+        t0 = time.time()
+        *ranks, prefix = run_build_workers(tmp, [specs, specs], INGEST_K,
+                                           [False, True], device, 300)
+        wall = time.time() - t0
+        for rank, (rc, out, err) in enumerate(ranks):
+            if rc != 0 or out is None:
+                raise AssertionError("build worker %d exited %s: %s"
+                                     % (rank, rc, err[-2000:]))
+        sizes = []
+        for fs in (False, True):
+            want = build_presence_matrix(gks, filter_singleton=fs)
+            for rank in range(2):
+                kmers, matrix = _worker_matrix(prefix, rank, fs)
+                if not (np.array_equal(kmers, want.kmers)
+                        and np.array_equal(matrix, want.matrix)
+                        and matrix.dtype == want.matrix.dtype):
+                    raise AssertionError("the two-process build (rank %d, "
+                                         "filter_singleton=%s) != the local "
+                                         "build" % (rank, fs))
+            sizes.append(want.kmers.shape[0])
+        bad = list(specs)
+        bad[1] = ("zz_other", bad[1][1])
+        t0 = time.time()
+        *faulted, _ = run_build_workers(tmp, [specs, bad], INGEST_K, [False],
+                                        device, 60)
+        t_fault = time.time() - t0
+        for rank, (rc, _, err) in enumerate(faulted):
+            if rc != 3 or "input mismatch" not in err:
+                raise AssertionError("rank %d of a mismatched build exited "
+                                     "%s: %s" % (rank, rc, err[-2000:]))
+    return ("%d x %d bp, 2 processes: union and matrix == the local build "
+            "(%d k-mers, %d after the singleton filter) on both ranks in "
+            "%.1f s (both builds, process start included; launches %s); a "
+            "mismatched genome list failed fast on both ranks in %.1f s"
+            % (n_genomes, length, sizes[0], sizes[1], wall,
+               [r[1]["launches"] for r in ranks], t_fault))
+
+
+def run_build_distributed(specs, ingest, paths, card):
+    """Phase 5, the ``build-distributed`` path: two processes on the card
+    over ``create-contigs``' FASTA files (k = 31, the singleton filter),
+    each counting its round-robin half. The union and the matrix must equal
+    ``create-contigs``' (which equal ``ingest-device``'s: its union and its
+    matrix rows, genomes in the same order); each process's counting,
+    exchange and merge walls and peak RSS are printed. The workers' launch
+    counts go into ``paths``."""
+    _, _, _, union, matrix = ingest
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        *ranks, prefix = run_build_workers(tmp, [specs, specs], INGEST_K,
+                                           [True], "cuda", 600)
+        wall = time.time() - t0
+        for rank, (rc, out, err) in enumerate(ranks):
+            if rc != 0 or out is None:
+                raise AssertionError("build-distributed: worker %d exited "
+                                     "%s: %s" % (rank, rc, err[-2000:]))
+        for rank in range(2):
+            kmers, m64 = _worker_matrix(prefix, rank, True)
+            from grm_tpu_torch.ops.popcount import u64_matrix_to_u32
+
+            m32 = u64_matrix_to_u32(m64)[:matrix.shape[0]].view(np.int32)
+            if not (np.array_equal(kmers, union)
+                    and np.array_equal(m32, matrix.cpu().numpy())):
+                raise AssertionError("build-distributed: rank %d's union (%d "
+                                     "k-mers) or matrix != create-contigs' "
+                                     "(%d)" % (rank, len(kmers), len(union)))
+    from grm_tpu_torch.ops import _build
+
+    launches = dict.fromkeys(_build.launches, 0)
+    for _, out, _ in ranks:
+        for k, v in out["launches"].items():
+            launches[k] += v
+    paths["build-distributed"] = launches
+    for rank, (_, out, _) in enumerate(ranks):
+        t = out["filter=1"]
+        log("    build-distributed rank %d (%s): build %.3f s = counting on "
+            "the card %.3f s, local merge %.3f s, exchange %.3f s, union "
+            "merge and scatter %.3f s; peak RSS %.2f GB; launches %s"
+            % (rank, card, t["wall"], t["count"], t["local_merge"],
+               t["exchange"], t["merge"], out["peak_rss_gb"],
+               out["launches"]))
+    log("    build-distributed (%s): 2 processes, %d genomes, %d k-mers "
+        "after the singleton filter == create-contigs' union and matrix; "
+        "wall %.1f s with both processes' start" % (card, len(specs),
+                                                    len(union), wall))
+    if launches.get("kmer_canon", 0) != len(specs):
+        raise AssertionError("build-distributed: %s kmer_canon launches for "
+                             "%d genomes" % (launches.get("kmer_canon"),
+                                             len(specs)))
+
+
+def check_cli_mesh(device, seed):
+    """The CLI's mesh on the one-card machine: ``learn scm --engine device
+    --n-devices 2`` exits 1 with grm_tpu's message before it loads
+    anything; ``--n-devices 1`` runs unsharded (:func:`cli_unsharded`)."""
+    import io
+
+    from grm_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(["learn", "scm", "--dataset", "unused.h5", "--split",
+                      "sp", "--engine", "device", "--n-devices", "2"])
+        except SystemExit as e:
+            code = e.code
+        else:
+            code = 0
+    text = buf.getvalue()
+    if code != 1 or "exceeds the 1 available local device(s)" not in text:
+        raise AssertionError("learn scm --n-devices 2 on one card: exit %s, "
+                             "%r" % (code, text))
+    return "%s; %s" % (text.strip(), cli_unsharded(device, seed))
+
+
+CLI_SIZE = (342, 20_000)  # the artifact of cli_unsharded
+
+
+def cli_unsharded(device, seed):
+    """``learn scm --engine device --n-devices 1`` through ``cli.main`` over
+    an in-memory artifact (its ``memory://`` path: the machine has no
+    h5py) places no matrix on a mesh and writes the model and metrics of
+    the same command without the flag."""
+    import io
+
+    from grm_tpu_torch import cli
+    from grm_tpu_torch.parallel.mesh import MeshSharding
+
+    mem = build_artifact(*CLI_SIZE, seed, device)
+    placed = []
+    originals = {name: getattr(MeshSharding, name)
+                 for name in ("place", "place_u64")}
+    for name, fn in originals.items():
+        setattr(MeshSharding, name, lambda self, *a, _fn=fn, _n=name:
+                placed.append(_n) or _fn(self, *a))
+    results = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for flag in (["--n-devices", "1"], []):
+                out = os.path.join(tmp, "n%d" % len(flag))
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(["learn", "scm", "--dataset", mem.path,
+                              "--split", "sp", "--engine", "device",
+                              "--p", "0.5", "1.0", "--max-rules", "5",
+                              "--device", str(device), "--output-dir",
+                              out] + flag)
+                with open(os.path.join(out, "results.json")) as f:
+                    got = json.load(f)
+                results[len(flag)] = (got["model"], got["metrics"])
+    finally:
+        for name, fn in originals.items():
+            setattr(MeshSharding, name, fn)
+    if placed:
+        raise AssertionError("learn scm --n-devices 1 placed a matrix on a "
+                             "mesh (%s)" % placed)
+    if results[2] != results[0]:
+        raise AssertionError("learn scm --n-devices 1 != without the flag: "
+                             "%r != %r" % (results[2], results[0]))
+    return ("learn scm --n-devices 1, %dx%d in memory: unsharded, model "
+            "and metrics == without the flag (%d rules)"
+            % (CLI_SIZE + (len(results[0][0]["rules"]),)))
+
+
 # -- phases -------------------------------------------------------------------
 
 def ptxas_summary(text):
@@ -3274,7 +3736,7 @@ def run(seed):
             raise AssertionError("learn_CART streamed %s chunks a pass, not "
                                  "%d" % (sorted(set(watch.passes)), n_chunks))
         log("    (streamed: %s)" % watch.summary())
-    del small, host_out
+    del host_out
     tri = build_artifact(TRI_GENOMES, TRI_KMERS, seed, device, n_classes=3)
     t0 = time.time()
     host_out = learn_tree(tri, "host", device, list(CART_CRITERIA),
@@ -3298,7 +3760,12 @@ def run(seed):
             raise AssertionError("the three-class artifact streamed %s "
                                  "chunks a pass" % sorted(set(watch.passes)))
         log("    (streamed: %s)" % watch.summary())
-    del tri, host_out
+    del host_out
+    t0 = time.time()
+    for line in check_sharded_small(device, seed, small, tri):
+        log("    mesh of cuda:0: %s" % line)
+    log("    meshes checked in %.1f s" % (time.time() - t0))
+    del small, tri
     t0 = time.time()
     for line in check_ingest_small(device, seed):
         log("    from_contigs_device, %dx%d from FASTA: union and matrix == "
@@ -3310,6 +3777,8 @@ def run(seed):
     log("    from_contigs / from_reads into memory, %dx%d: %s == cpu, array "
         "for array and attr for attr; count_fasta == cpu; %s; in %.1f s"
         % (SMALL_INGEST + (device, line, time.time() - t0)))
+    log("    multi-process build: %s" % check_distributed_small(device, seed))
+    log("    CLI on one card: %s" % check_cli_mesh(device, seed))
 
     # 5. the main paths at full scale
     t0 = time.time()
@@ -3319,16 +3788,17 @@ def run(seed):
         % (MEDIAN_GENOMES, MEDIAN_KMERS, N_FOLDS, time.time() - t0))
     from grm_tpu_torch.dataset import GrmDataset
     from grm_tpu_torch.ops.popcount import load_chunk_cols
+    from grm_tpu_torch.parallel.mesh import MeshSharding
     from grm_tpu_torch.profiling import StageTimer
     from grm_tpu_torch.reports import write_cart_outputs, write_scm_outputs
 
-    def scm_path(engine, src=mem):
-        out = learn(src, engine, device)
+    def scm_path(engine, src=mem, mesh=None):
+        out = learn(src, engine, device, mesh)
         torch.cuda.synchronize()
         return out, fingerprint(out)
 
-    def tree_path(engine, criterion, max_depth, src=mem):
-        out = learn_tree(src, engine, device, criterion, max_depth)
+    def tree_path(engine, criterion, max_depth, src=mem, mesh=None):
+        out = learn_tree(src, engine, device, criterion, max_depth, mesh)
         torch.cuda.synchronize()
         return out, tree_fingerprint(out)
 
@@ -3337,17 +3807,31 @@ def run(seed):
     # through the pinned staging ring and deinterleave_u64), then ``learn``
     # on the loaded dataset. One load is this many deinterleave_u64 launches.
     n_words = -(-MEDIAN_GENOMES // 32)
-    load_chunks = -(-MEDIAN_KMERS // load_chunk_cols(-(-n_words // 2)))
-    loads = {}  # path -> (StageTimer, load peak bytes, bound) of its 1st run
+    chunk_cols = load_chunk_cols(-(-n_words // 2))
+    load_chunks = -(-MEDIAN_KMERS // chunk_cols)
+    # A sharded load splits each shard's columns on its own: chunks a shard.
+    shard_k = -(-MEDIAN_KMERS // MESH_CARDS)
+    sharded_chunks = sum(-(-min(shard_k, MEDIAN_KMERS - lo) // chunk_cols)
+                         for lo in range(0, MEDIAN_KMERS, shard_k))
+    mesh = card_mesh(device, MESH_CARDS)
+    # path -> (StageTimer, load peak bytes, bound, the path's peak bytes) of
+    # its first run
+    loads = {}
 
-    def loaded(path, learn_on):
+    def loaded(path, learn_on, mesh=None):
         timer = StageTimer()
         ds = GrmDataset(mem, device=device)
+        sharding = None if mesh is None else MeshSharding(mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         with timer.stage("load"):
-            _, peak, bound = load_peak(ds.bit_matrix, n_words, MEDIAN_KMERS)
+            _, peak, bound = load_peak(
+                lambda: ds.bit_matrix(sharding=sharding), n_words,
+                MEDIAN_KMERS)
         with timer.stage("learn"):
             out = learn_on(ds)
-        loads.setdefault(path, (timer, peak, bound))
+        path_peak = torch.cuda.max_memory_allocated() - base
+        loads.setdefault(path, (timer, peak, bound, path_peak))
         return out
 
     reports_dir = tempfile.mkdtemp(prefix="grm_reports_")
@@ -3400,6 +3884,19 @@ def run(seed):
         "tree-device-streamed": lambda: streamed(
             "tree-device-streamed", lambda: tree_path(
                 "device", list(CART_CRITERIA), 10)),
+        # The resident paths on a (1, MESH_CARDS) mesh of cuda:0, each
+        # loading its own sharded matrix.
+        "device-sharded": lambda: loaded(
+            "device-sharded", lambda ds: scm_path("device", ds, mesh), mesh),
+        "device-argmax-sharded": lambda: loaded(
+            "device-argmax-sharded",
+            lambda ds: scm_path("device-argmax", ds, mesh), mesh),
+        "tree-device-sharded": lambda: loaded(
+            "tree-device-sharded", lambda ds: tree_path(
+                "device", list(CART_CRITERIA), 10, ds, mesh), mesh),
+        "tree-device-argmax-sharded": lambda: loaded(
+            "tree-device-argmax-sharded", lambda ds: tree_path(
+                "device-argmax", list(CART_CRITERIA), 10, ds, mesh), mesh),
     }
     paths = {}  # path -> launches, counted from 0 over that path alone
     fingerprints = {}
@@ -3441,6 +3938,19 @@ def run(seed):
             log("    %s: fingerprint == %r's; wall %.2f s against %.2f s "
                 "resident; %s" % (path, resident, wall, walls[resident],
                                   watches[path].summary()))
+        if path.endswith("-sharded"):
+            base = path[:-len("-sharded")]
+            if fp != fingerprints[base]:
+                raise AssertionError("path %r learned another model than %r:"
+                                     "\n%s\n%s" % (path, base, fp,
+                                                    fingerprints[base]))
+            ratio = {k: "%d / %d" % (n, paths[base][k])
+                     for k, n in paths[path].items()
+                     if k in PATH_KERNELS[base] and k != "deinterleave_u64"}
+            log("    %s (%s): fingerprint == %r's on %d shards of cuda:0; "
+                "wall %.2f s against %.2f s unsharded; launches sharded / "
+                "unsharded %s" % (path, smi, base, MESH_CARDS, wall,
+                                  walls[base], ratio))
         if not fp["rules"] or not np.isfinite(fp["score"]):
             raise AssertionError("path %r learned no model" % path)
         if not all(np.isfinite(v) for v in fp["importances"]):
@@ -3468,16 +3978,18 @@ def run(seed):
         if written:
             log("    reports: %s" % written)
         if path in loads:
-            timer, peak, bound = loads[path]
+            timer, peak, bound, path_peak = loads[path]
             log("    stages of %s (%s): %s; the load peaked at %d bytes on "
-                "the card (matrix + 3 chunks: %d), %d deinterleave_u64 "
-                "launches" % (path, smi, ", ".join(
+                "the card (matrix + 3 chunks: %d), the path at %d; %d "
+                "deinterleave_u64 launches" % (path, smi, ", ".join(
                     "%s %.3f s" % kv for kv in timer.stages.items()), peak,
-                    bound, paths[path]["deinterleave_u64"]))
-            if paths[path]["deinterleave_u64"] != load_chunks:
+                    bound, path_peak, paths[path]["deinterleave_u64"]))
+            chunks = (sharded_chunks if path.endswith("-sharded")
+                      else load_chunks)
+            if paths[path]["deinterleave_u64"] != chunks:
                 raise AssertionError(
                     "path %r: %d deinterleave_u64 launches, not one load's %d"
-                    % (path, paths[path]["deinterleave_u64"], load_chunks))
+                    % (path, paths[path]["deinterleave_u64"], chunks))
         missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
         if missing:
             raise AssertionError("path %r launched no %s" % (path, missing))
@@ -3527,7 +4039,9 @@ def run(seed):
     # The device ingest path, on its own data; then dataset creation from
     # the same genomes as FASTA files, held to its union and matrix.
     ingest = run_ingest(device, seed, paths)
-    run_create(device, seed, paths, ingest, smi)
+    run_create(device, seed, paths, ingest, smi,
+               then=lambda specs: run_build_distributed(specs, ingest, paths,
+                                                        smi))
     codes_list = ingest[0]
     del ingest
 
@@ -3588,7 +4102,11 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the synthetic artifacts")
+    parser.add_argument("--build-worker", metavar="SPEC",
+                        help=argparse.SUPPRESS)  # one process of the build
     args = parser.parse_args(argv)
+    if args.build_worker:
+        return build_worker(args.build_worker)
     import torch
 
     if not torch.cuda.is_available():

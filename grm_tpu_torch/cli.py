@@ -17,7 +17,9 @@ matrix`` (:607, :626) likewise. ``learn scm`` and ``learn tree`` (:332,
 :480) keep the reference's engines and its default: the exact device engine
 (``--engine device``) on the card, ``host`` with ``--device cpu``, as
 ``grm`` picks ``host`` on a CPU backend; ``--engine device --device cpu``
-runs the exact engine's plain PyTorch versions.
+runs the exact engine's plain PyTorch versions. ``--n-devices N`` shards
+the k-mer columns over N local cards (``grm``'s checks and messages; with
+``--device cpu`` the CPU stands in N times).
 
     python -m grm_tpu_torch collect amr --amr-metadata PATRIC_genomes_AMR.txt ...
     python -m grm_tpu_torch collect genomes --ids 511145.12 --dest dir
@@ -58,6 +60,42 @@ def _progress_printer(enabled):
         sys.stdout.flush()
 
     return progress
+
+
+def _make_cli_mesh(n_devices, engine, device):
+    """("rows","cols") mesh over N local devices for --n-devices, or None.
+
+    Validates the request: sharding requires the device engine and N
+    available local devices (a silent fallback would hide that the user's
+    sharding never happened). With ``--device cpu`` the mesh names the CPU
+    N times: the shards then share it.
+    """
+    if not n_devices or n_devices <= 1:
+        return None
+    if engine not in ("device", "device-argmax"):
+        print("Error: --n-devices requires --engine device (the host engine "
+              "is the single-process exact-parity path).")
+        sys.exit(1)
+    import torch
+
+    from .parallel.mesh import make_mesh
+
+    if torch.device(device).type == "cpu":
+        return make_mesh(n_devices, row_devices=1,
+                         devices=[torch.device("cpu")] * n_devices)
+    available = torch.cuda.device_count()
+    if available < n_devices:
+        print("Error: --n-devices %d exceeds the %d available local "
+              "device(s)." % (n_devices, available))
+        sys.exit(1)
+    return make_mesh(n_devices, row_devices=1)
+
+
+def _n_devices_flag(parser):
+    parser.add_argument("--n-devices", type=int, default=0,
+                        help="Shard k-mer columns over N local devices "
+                             "(device engines; 0 = single device; with "
+                             "--device cpu the CPU stands in N times).")
 
 
 def _device_flag(parser):
@@ -340,6 +378,7 @@ def _cmd_learn_scm(argv):
                              "to host); device-argmax = fastest CV, "
                              "lowest-index tie resolution. Default: device "
                              "on cuda, host with --device cpu.")
+    _n_devices_flag(parser)
     _device_flag(parser)
     parser.add_argument("--output-dir", default=".")
     parser.add_argument("-x", "--progress", action="store_true")
@@ -349,6 +388,8 @@ def _cmd_learn_scm(argv):
     args = parser.parse_args(argv)
     if args.engine is None:
         args.engine = "host" if args.device == "cpu" else "device"
+    # Refused before anything loads, with grm's messages and exit code.
+    mesh = _make_cli_mesh(args.n_devices, args.engine, args.device)
     if args.verbose:
         logging.basicConfig(level=logging.DEBUG)
     progress = _progress_printer(args.progress)
@@ -397,6 +438,7 @@ def _cmd_learn_scm(argv):
         random_seed=args.random_seed,
         authorized_rules=args.authorized_rules,
         engine=args.engine,
+        mesh=mesh,
         progress_callback=progress,
         device=args.device,
     )
@@ -485,6 +527,7 @@ def _cmd_learn_tree(argv):
                              "the device, lowest-column tie resolution. "
                              "Default: device on cuda, host with --device "
                              "cpu.")
+    _n_devices_flag(parser)
     _device_flag(parser)
     parser.add_argument("--output-dir", default=".")
     parser.add_argument("-x", "--progress", action="store_true")
@@ -494,6 +537,8 @@ def _cmd_learn_tree(argv):
     args = parser.parse_args(argv)
     if args.engine is None:
         args.engine = "host" if args.device == "cpu" else "device"
+    # Refused before anything loads, with grm's messages and exit code.
+    mesh = _make_cli_mesh(args.n_devices, args.engine, args.device)
     if args.verbose:
         logging.basicConfig(level=logging.DEBUG)
     progress = _progress_printer(args.progress)
@@ -556,6 +601,7 @@ def _cmd_learn_tree(argv):
         authorized_rules=args.authorized_rules,
         n_cpu=args.n_cpu,
         engine=args.engine,
+        mesh=mesh,
         progress_callback=progress,
         device=args.device,
     )

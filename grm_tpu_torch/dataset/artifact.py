@@ -11,7 +11,9 @@ attrs ``uuid``, ``genome_source_type``, ``genomic_data``,
 ``splits/<name>/...``. :class:`GrmDataset` reads the very files
 ``grm_tpu`` writes (``h5py`` is imported only when a file is opened) or a
 :class:`MemoryArtifact`, a mapping of the same names and attrs, so a run can
-hold its artifact in memory on a machine without ``h5py``.
+hold its artifact in memory on a machine without ``h5py``; its path,
+``memory://artifact-N``, opens it again in the process that holds it (the
+CLI's ``--dataset``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ from ..utils import unpack_binary_bytes_from_ints
 __all__ = ["GrmDataset", "MemoryArtifact", "MemoryDataset", "as_dataset"]
 
 _MEMORY_SERIAL = itertools.count()
+_MEMORY_ARTIFACTS = weakref.WeakValueDictionary()  # path -> live artifact
 
 
 class MemoryDataset:
@@ -82,6 +86,7 @@ class MemoryArtifact(MemoryGroup):
         super().__init__()
         self.serial = next(_MEMORY_SERIAL)
         self.path = "memory://artifact-%d" % self.serial
+        _MEMORY_ARTIFACTS[self.path] = self
 
 
 class _Phenotype:
@@ -139,12 +144,17 @@ class _Split:
 
 
 class GrmDataset:
-    """Read-mostly accessor over an artifact: an HDF5 path or a
-    :class:`MemoryArtifact`. ``device`` (default ``"cuda"``) is where
+    """Read-mostly accessor over an artifact: an HDF5 path, a
+    :class:`MemoryArtifact` or its ``memory://`` path. ``device`` (default ``"cuda"``) is where
     :meth:`bit_matrix` places the packed matrix."""
 
     def __init__(self, source, device=None):
         self.device = resolve_device(device)
+        if isinstance(source, str) and source.startswith("memory://"):
+            path, source = source, _MEMORY_ARTIFACTS.get(source)
+            if source is None:
+                raise FileNotFoundError("no artifact %s in this process"
+                                        % path)
         self.source = source
         self._memory = isinstance(source, MemoryArtifact)
         self.path = source.path if self._memory else str(source)
@@ -285,21 +295,36 @@ class GrmDataset:
         _, total = torch.cuda.mem_get_info(self.device)
         return total
 
-    def bit_matrix(self):
-        """The packed matrix (built once): a device-resident
-        :class:`BitMatrix`, or, above 60% of the device memory budget, a
-        :class:`StreamingBitMatrix` that stays in host memory and streams
-        through the card chunk by chunk."""
-        if self._bit_matrix is None:
+    def bit_matrix(self, sharding=None):
+        """The packed matrix: a device-resident :class:`BitMatrix`, or,
+        above 60% of the device memory budget, a :class:`StreamingBitMatrix`
+        that stays in host memory and streams through the card chunk by
+        chunk.
+
+        ``sharding`` (a :class:`~grm_tpu_torch.parallel.mesh.MeshSharding`)
+        places the matrix on a mesh, each column shard split straight onto
+        its device; a sharded matrix never streams. Without ``sharding`` the
+        matrix is unsharded. One matrix is kept, that of the sharding asked
+        for last: asking for another frees it and loads anew, so that a
+        sharded and an unsharded copy never lie on the card side by side.
+        """
+        bm = self._bit_matrix
+        if bm is None or bm.sharding != sharding:
+            self._bit_matrix = None  # free the old matrix before the new one
+            del bm
             m64 = self.kmer_matrix_u64()
             device_bytes = m64.shape[0] * 2 * m64.shape[1] * 4
             budget = self._device_memory_budget()
-            if budget is not None and device_bytes > 0.6 * budget:
-                self._bit_matrix = StreamingBitMatrix.from_u64(
+            if sharding is not None:
+                bm = BitMatrix.from_u64(m64, self.genome_count,
+                                        sharding=sharding)
+            elif budget is not None and device_bytes > 0.6 * budget:
+                bm = StreamingBitMatrix.from_u64(
                     m64, self.genome_count, device=self.device)
             else:
-                self._bit_matrix = BitMatrix.from_u64(
+                bm = BitMatrix.from_u64(
                     m64, self.genome_count, device=self.device)
+            self._bit_matrix = bm
         return self._bit_matrix
 
     def get_matrix_columns(self, columns):

@@ -15,9 +15,9 @@ impurity arithmetic stays host-side float64 for exact selection parity.
 Engines: ``"host"`` (float64 scan over fetched counts), ``"device"`` (the
 exact device engine, :mod:`grm_tpu_torch.parallel.cart_exact`: the host's
 model bit for bit from device sweeps) and ``"device-argmax"`` (impurity and
-argmin on the device, :mod:`grm_tpu_torch.parallel.cart_device`). A
-``mesh`` raises ``NotImplementedError`` until the multi-device engines are
-ported.
+argmin on the device, :mod:`grm_tpu_torch.parallel.cart_device`). With a
+``mesh`` both device engines score the frontier over the matrix's column
+shards, one kernel launch a shard.
 """
 
 from __future__ import annotations
@@ -42,9 +42,6 @@ __all__ = [
 ]
 
 ENGINES = ("host", "device", "device-argmax")
-MESH_MESSAGE = (
-    "CART over a device mesh is not ported yet (ROADMAP.md, Queue 1: "
-    "multi-device engines); pass mesh=None")
 
 
 @dataclass
@@ -64,6 +61,7 @@ class FrontierRequest:
     total_n_examples_by_class: dict = field(default_factory=dict)
     criterion: str = "gini"
     excl: object = None          # optional (K,) bool column blacklist
+    mesh: object = None          # optional ("rows", "cols") device mesh
     bit_matrix: object = None    # the packed presence matrix to score over
     exact: bool = False          # exact engine: candidate gathers, host ties
     train_idx: object = None     # the tree's training examples (tiebreaker)
@@ -222,7 +220,8 @@ def service_frontier_request(request):
                 request.bit_matrix, request.node_sets,
                 request.altered_priors, request.total_n_examples_by_class,
                 request.criterion, [request.train_idx] * n,
-                excl=request.excl, need_equiv=[request.need_equiv] * n,
+                excl=request.excl, mesh=request.mesh,
+                need_equiv=[request.need_equiv] * n,
                 occ_tiebreak=[request.occ_tiebreak] * n,
                 defer_equiv=[request.defer_equiv] * n,
             )
@@ -232,7 +231,7 @@ def service_frontier_request(request):
     return cart_frontier_splits_device(
         request.bit_matrix, request.node_sets, request.altered_priors,
         request.total_n_examples_by_class, request.criterion,
-        excl=request.excl,
+        excl=request.excl, mesh=request.mesh,
     )
 
 
@@ -263,9 +262,10 @@ class DecisionTreeClassifier:
         #   column ties), only the winner fetched — the speed path.
         if engine not in ENGINES:
             raise ValueError("engine must be one of %s" % (ENGINES,))
-        if mesh is not None:
-            raise NotImplementedError(MESH_MESSAGE)
         self.engine = engine
+        # Optional ("rows", "cols") device mesh: with a device engine,
+        # frontier scoring shards the k-mer columns over the mesh.
+        self.mesh = mesh
         # Defer equivalence-set compaction (exact engine only): split
         # callbacks receive DeferredEquiv specs; the experiment resolves
         # the chosen master's sets once at the end.
@@ -551,6 +551,7 @@ class DecisionTreeClassifier:
                     total_n_examples_by_class=n_total_class_examples,
                     criterion=self.criterion,
                     excl=device_excl,
+                    mesh=self.mesh,
                     bit_matrix=rule_classifications.bit_matrix,
                     exact=exact_engine,
                     train_idx=tree_train_idx,

@@ -1,5 +1,5 @@
 """CART experiment: HP grid + CV/bound pruning + metrics (the port of
-``grm_tpu/learning/experiments/cart_experiment.py`` for one device).
+``grm_tpu/learning/experiments/cart_experiment.py``).
 
 Mirrors the reference flow (``experiment_cart.py``): per-HP overgrown trees
 on folds + master, minimal cost-complexity pruning, fold-risk-by-alpha via a
@@ -14,8 +14,8 @@ forks a worker per combination, re-opening the dataset each time): one tree
 after the other with ``engine="host"``, all trees as one level-synchronous
 forest with ``engine="device"`` and ``engine="device-argmax"``. Grid order
 is deterministic ``product(criterion, class_importance, max_depth,
-min_samples_split)``. A ``mesh`` raises ``NotImplementedError`` until the
-multi-device engines are ported.
+min_samples_split)``. With a ``mesh`` the device engines load the matrix
+sharded over it and score every frontier shard by shard.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ import numpy as np
 from ...dataset.artifact import as_dataset
 from ...utils import parse_kmer_blacklist
 from ..bounds import cart_bound
+from ...parallel.mesh import check_mesh, mesh_sharding
 from ..cart import (
-    MESH_MESSAGE,
     DecisionTreeClassifier,
     DeferredEquiv,
     device_excl_from_blacklist,
@@ -223,7 +223,8 @@ def _lazy_tiebreaker(rule_classifications, example_idx):
     return tiebreaker
 
 
-def _bound_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
+def _bound_grow(hps, dataset, split_name, rule_blacklist, engine="host",
+                mesh=None):
     """Build the master tree + its growth job for one HP combo (bound
     selection trains once on the full train set, experiment_cart.py:208-294)."""
     split = dataset.get_split(split_name)
@@ -231,7 +232,8 @@ def _bound_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
     example_labels = dataset.phenotype.metadata
     n_classes = len(dataset.phenotype.tags)
     rules = LazyKmerRuleList(dataset)
-    rule_classifications = KmerRuleClassifications(dataset)
+    rule_classifications = KmerRuleClassifications(
+        dataset, sharding=mesh_sharding(mesh))
 
     master = DecisionTreeClassifier(
         criterion=hps["criterion"],
@@ -239,6 +241,7 @@ def _bound_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
         min_samples_split=hps["min_samples_split"],
         class_importance=hps["class_importance"],
         engine=engine,
+        mesh=mesh,
         defer_equiv=True,
     )
     jobs = [(master, dict(
@@ -253,13 +256,14 @@ def _bound_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
 
 
 def _bound_finish(hps, master, dataset, split_name, delta, max_genome_size,
-                  column_cache=None):
+                  column_cache=None, mesh=None):
     """Prune the grown master by bound value (experiment_cart.py:208-294)."""
     split = dataset.get_split(split_name)
     train_idx = split.train_genome_idx
     example_labels = dataset.phenotype.metadata
     n_classes = len(dataset.phenotype.tags)
-    rule_classifications = KmerRuleClassifications(dataset)
+    rule_classifications = KmerRuleClassifications(
+        dataset, sharding=mesh_sharding(mesh))
 
     min_score = np.inf
     min_score_tree = None
@@ -287,17 +291,18 @@ def _bound_finish(hps, master, dataset, split_name, delta, max_genome_size,
 
 
 def _learn_pruned_tree_bound(hps, dataset, split_name, delta, max_genome_size,
-                             rule_blacklist, engine="host"):
+                             rule_blacklist, engine="host", mesh=None):
     """Grow a master tree and prune by bound value (experiment_cart.py:208-294)."""
     master, jobs = _bound_grow(hps, dataset, split_name, rule_blacklist,
-                               engine)
+                               engine, mesh)
     for classifier, kwargs in jobs:
         classifier.fit(**kwargs)
     return _bound_finish(hps, master, dataset, split_name, delta,
-                         max_genome_size)
+                         max_genome_size, mesh=mesh)
 
 
-def _cv_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
+def _cv_grow(hps, dataset, split_name, rule_blacklist, engine="host",
+             mesh=None):
     """Build the per-fold + master trees and their growth jobs for one HP
     combo of the CV search (experiment_cart.py:297-380)."""
     split = dataset.get_split(split_name)
@@ -305,7 +310,8 @@ def _cv_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
     example_labels = dataset.phenotype.metadata
     n_classes = len(dataset.phenotype.tags)
     rules = LazyKmerRuleList(dataset)
-    rule_classifications = KmerRuleClassifications(dataset)
+    rule_classifications = KmerRuleClassifications(
+        dataset, sharding=mesh_sharding(mesh))
 
     def _make_predictor(defer_equiv=False):
         return DecisionTreeClassifier(
@@ -314,6 +320,7 @@ def _cv_grow(hps, dataset, split_name, rule_blacklist, engine="host"):
             min_samples_split=hps["min_samples_split"],
             class_importance=hps["class_importance"],
             engine=engine,
+            mesh=mesh,
             defer_equiv=defer_equiv,
         )
 
@@ -397,10 +404,10 @@ def _cv_finish(hps, dataset, split_name, fold_predictors, master_predictor,
 
 
 def _learn_pruned_tree_cv(hps, dataset, split_name, rule_blacklist,
-                          engine="host"):
+                          engine="host", mesh=None):
     """Breiman-style CV cost-complexity pruning (experiment_cart.py:297-434)."""
     fold_predictors, master_predictor, jobs = _cv_grow(
-        hps, dataset, split_name, rule_blacklist, engine
+        hps, dataset, split_name, rule_blacklist, engine, mesh
     )
     for classifier, kwargs in jobs:
         classifier.fit(**kwargs)
@@ -438,10 +445,10 @@ def _search_batched(hps_list, dataset, split_name, rule_blacklist, grow, finish)
 
 
 def _cv_search_batched(hps_list, dataset, split_name, rule_blacklist,
-                       engine="device-argmax"):
+                       engine="device-argmax", mesh=None):
     return _search_batched(
         hps_list, dataset, split_name, rule_blacklist,
-        grow=partial(_cv_grow, engine=engine),
+        grow=partial(_cv_grow, engine=engine, mesh=mesh),
         finish=lambda hps, grown, cache=None: _cv_finish(
             hps, dataset, split_name, grown[0], grown[1],
             column_cache=cache,
@@ -450,13 +457,14 @@ def _cv_search_batched(hps_list, dataset, split_name, rule_blacklist,
 
 
 def _bound_search_batched(hps_list, dataset, split_name, rule_blacklist,
-                          delta, max_genome_size, engine="device-argmax"):
+                          delta, max_genome_size, engine="device-argmax",
+                          mesh=None):
     return _search_batched(
         hps_list, dataset, split_name, rule_blacklist,
-        grow=partial(_bound_grow, engine=engine),
+        grow=partial(_bound_grow, engine=engine, mesh=mesh),
         finish=lambda hps, grown, cache=None: _bound_finish(
             hps, grown[0], dataset, split_name, delta, max_genome_size,
-            column_cache=cache,
+            column_cache=cache, mesh=mesh,
         ),
     )
 
@@ -525,7 +533,8 @@ def train_tree(dataset, split_name, criterion, class_importance, max_depth,
     return best_score, best_hps, best_master_tree
 
 
-def _resolve_deferred_equiv(dataset, split_name, tree, rule_blacklist):
+def _resolve_deferred_equiv(dataset, split_name, tree, rule_blacklist,
+                            mesh=None):
     """Replace DeferredEquiv specs on the chosen master's rules with the
     real equivalence column sets (one batched device pass)."""
     nodes = []
@@ -546,8 +555,9 @@ def _resolve_deferred_equiv(dataset, split_name, tree, rule_blacklist):
     specs = [(nd.rule.equivalent_rules_idx.keys,
               nd.rule.equivalent_rules_idx.occmax) for nd in nodes]
     sets = resolve_equiv_specs(
-        dataset.bit_matrix(), [nd.class_examples_idx for nd in nodes],
-        [train_idx] * len(nodes), specs, excl=excl)
+        dataset.bit_matrix(sharding=mesh_sharding(mesh)),
+        [nd.class_examples_idx for nd in nodes],
+        [train_idx] * len(nodes), specs, excl=excl, mesh=mesh)
     for nd, eq in zip(nodes, sets):
         nd.rule.equivalent_rules_idx = eq
 
@@ -613,8 +623,6 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
     """
     if engine not in ("host", "device", "device-argmax"):
         raise ValueError("unknown engine %r" % (engine,))
-    if mesh is not None:
-        raise NotImplementedError(MESH_MESSAGE)
     if warning_callback is None:
         warning_callback = lambda w: logging.warning(w)
     if error_callback is None:
@@ -626,10 +634,14 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
         progress_callback = lambda t, p: None
 
     dataset = as_dataset(dataset_file, device=device)
+    if mesh is not None:
+        check_mesh(mesh, dataset.device)
+        if engine == "host":
+            mesh = None  # the host engine does not shard
     rule_blacklist = _find_rule_blacklist(dataset, kmer_blacklist_file,
                                           warning_callback)
 
-    if engine == "device-argmax":
+    if engine == "device-argmax" and mesh is None:
         # Matrices past the device memory budget come back as a
         # host-resident StreamingBitMatrix. The EXACT engine (engine
         # "device") streams column chunks through its sweeps; only the
@@ -666,10 +678,12 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
                 )
             )
         func = partial(_learn_pruned_tree_bound, delta=bound_delta,
-                       max_genome_size=bound_max_genome_size, engine=engine)
+                       max_genome_size=bound_max_genome_size, engine=engine,
+                       mesh=mesh)
         batched = (
             partial(_bound_search_batched, delta=bound_delta,
-                    max_genome_size=bound_max_genome_size, engine=engine)
+                    max_genome_size=bound_max_genome_size, engine=engine,
+                    mesh=mesh)
             if engine in ("device", "device-argmax") else None
         )
         best_hp_score, best_hps, best_master_tree = train_tree(
@@ -686,10 +700,10 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
         best_hp_score, best_hps, best_master_tree = train_tree(
             dataset, split_name, criterion, class_importance, max_depth,
             min_samples_split, rule_blacklist, progress_callback,
-            partial(_learn_pruned_tree_cv, engine=engine),
+            partial(_learn_pruned_tree_cv, engine=engine, mesh=mesh),
             "cross-validation",
             batched_search_func=(
-                partial(_cv_search_batched, engine=engine)
+                partial(_cv_search_batched, engine=engine, mesh=mesh)
                 if engine in ("device", "device-argmax") else None
             ),
         )
@@ -755,7 +769,7 @@ def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split
     # pass (the HP search skipped per-level compaction for every master;
     # only this tree's sets are consumed — experiment_cart.py:636-638).
     _resolve_deferred_equiv(dataset, split_name, best_master_tree,
-                            rule_blacklist)
+                            rule_blacklist, mesh)
 
     model_rules = best_master_tree.rules
     model_equivalent_rules = {}

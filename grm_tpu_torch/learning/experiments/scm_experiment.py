@@ -1,7 +1,6 @@
 """SCM experiment driver: hyperparameter selection + final training + metrics.
 
-The port of ``grm_tpu/learning/experiments/scm_experiment.py`` for one
-device. Mirrors the reference flow (``experiment_scm.py:674-889``) with
+The port of ``grm_tpu/learning/experiments/scm_experiment.py``. Mirrors the reference flow (``experiment_scm.py:674-889``) with
 these differences:
 
 - the multiprocessing HP-grid pool (``experiment_scm.py:196-248``) becomes a
@@ -12,6 +11,12 @@ these differences:
 - risk-table tiebreakers operate on the stored unique-risk *indices* exactly
   like the reference (indices into the sorted unique_risks array order the
   same as the risks themselves, experiment_scm.py:122-130).
+
+With a ``mesh`` (:func:`grm_tpu_torch.parallel.mesh.make_mesh`) the matrix
+is loaded sharded (:class:`~grm_tpu_torch.parallel.mesh.MeshSharding`) and
+the device engines walk its shards, as ``grm_tpu``'s run SPMD: the exact
+engine and the grid engine on a mesh of one row of devices, the scan
+engine (pure argmax) where the word rows are sharded too.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ import torch
 
 from ...dataset.artifact import as_dataset
 from ...ops.popcount import masks_to_tensor
-from ...parallel.mesh import scm_fit_batch_device
-from ...parallel.scm_device import build_packed_mask
+from ...parallel.mesh import check_mesh, mesh_sharding, scm_fit_batch_device
+from ...parallel.scm_device import build_packed_mask, scm_cv_batch_device
 from ...parallel.scm_exact import ExactScmEngine, _make_risk_lookup
 from ...parallel.scm_grid import scm_cv_grid_device
 from ...utils import parse_kmer_blacklist
@@ -370,6 +375,15 @@ def _hp_selection_loop(hp_list, scores_by_hp):
     return best_hp_score, best_hp
 
 
+def _rows_sharded(mesh):
+    return mesh is not None and mesh.shape.get("rows", 1) != 1
+
+
+_ROW_BLACKLIST = ("k-mer blacklists are not supported by the row-sharded "
+                  "scan engine; use a columns-only mesh, the unsharded "
+                  "device engine, or the host engine")
+
+
 def _make_exact_engine(bm, n_kmers, rule_blacklist):
     """Resident exact engine, or the streamed (out-of-core) variant when
     the matrix exceeded the device memory budget and came back
@@ -381,7 +395,8 @@ def _make_exact_engine(bm, n_kmers, rule_blacklist):
 
 def _cross_validation_device_exact(dataset, split_name, model_types, p_values,
                                    max_rules, progress_callback,
-                                   rule_blacklist=(), collect_full_train=False):
+                                   rule_blacklist=(), mesh=None,
+                                   collect_full_train=False):
     """Device-engine CV with EXACT reference selection semantics.
 
     The :class:`~grm_tpu_torch.parallel.scm_exact.ExactScmEngine` keeps
@@ -391,11 +406,15 @@ def _cross_validation_device_exact(dataset, split_name, model_types, p_values,
     the selected rules, fold risks (exact integer error counts divided in
     float64), and therefore the chosen hyperparameters are bit-identical to
     :func:`_cross_validation` (reference experiment_scm.py:100-248).
+
+    With a columns-only ``mesh`` the matrix is placed column-sharded and the
+    engine walks the shards; selection stays exact because every decision
+    is made on the host from exact integer candidate counts.
     """
     split = dataset.get_split(split_name)
     folds = split.folds
     labels = dataset.phenotype.metadata
-    bm = dataset.bit_matrix()
+    bm = dataset.bit_matrix(sharding=mesh_sharding(mesh))
     n_words = bm.n_words
     n_genomes = dataset.genome_count
     n_kmers = bm.n_columns
@@ -484,7 +503,7 @@ def _cross_validation_device_exact(dataset, split_name, model_types, p_values,
 
 def _full_train_device_exact(dataset, split_name, model_type, p, max_rules,
                              max_equiv_rules, rule_blacklist,
-                             random_generator, progress_callback,
+                             random_generator, progress_callback, mesh=None,
                              precomputed=None):
     """Final training on device with exact tie sets — bit-identical to
     :func:`_full_train` (reference experiment_scm.py:251-346) including the
@@ -496,7 +515,7 @@ def _full_train_device_exact(dataset, split_name, model_type, p, max_rules,
     stable), so the device pass is skipped entirely."""
     split = dataset.get_split(split_name)
     labels = dataset.phenotype.metadata
-    bm = dataset.bit_matrix()
+    bm = dataset.bit_matrix(sharding=mesh_sharding(mesh))
     n_genomes = dataset.genome_count
     n_kmers = bm.n_columns
 
@@ -556,7 +575,7 @@ def _full_train_device_exact(dataset, split_name, model_type, p, max_rules,
             rule = rule.inverse()
         model.add(rule)
 
-    rc = KmerRuleClassifications(dataset)
+    rc = KmerRuleClassifications(dataset, sharding=mesh_sharding(mesh))
     if rule_idx:
         importances = _rule_importances(rc, rule_idx, training_example_idx)
     else:
@@ -565,21 +584,24 @@ def _full_train_device_exact(dataset, split_name, model_type, p, max_rules,
 
 
 def _cross_validation_device(dataset, split_name, model_types, p_values,
-                             max_rules, progress_callback, rule_blacklist=()):
+                             max_rules, progress_callback, mesh=None,
+                             rule_blacklist=()):
     """Device-engine CV with pure-argmax selection (the "device-argmax"
-    engine).
+    engine, and the row-sharded path of "device").
 
     Same HP selection rules as :func:`_cross_validation`, but fold scores
     come from the iteration-major grid engine
-    (:func:`grm_tpu_torch.parallel.scm_grid.scm_cv_grid_device`): pure-argmax
-    rule selection (no exact-tie tiebreaker), blacklisted rules excluded by
-    the sweep kernel, one matrix pass per greedy iteration scoring every fit
-    at once.
+    (:func:`grm_tpu_torch.parallel.scm_grid.scm_cv_grid_device`, over the
+    column shards on a mesh of one row): pure-argmax rule selection (no exact-tie tiebreaker),
+    blacklisted rules excluded by the sweep kernel, one matrix pass per
+    greedy iteration scoring every fit at once; or, where the word rows are
+    sharded, from the scan-over-fits engine
+    (:func:`grm_tpu_torch.parallel.scm_device.scm_cv_batch_device`).
     """
     split = dataset.get_split(split_name)
     folds = split.folds
     labels = dataset.phenotype.metadata
-    bm = dataset.bit_matrix()
+    bm = dataset.bit_matrix(sharding=mesh_sharding(mesh))
     n_words = bm.n_words
     n_genomes = dataset.genome_count
 
@@ -604,9 +626,16 @@ def _cross_validation_device(dataset, split_name, model_types, p_values,
                 "model_type": model_type,
             })
 
+    if len(rule_blacklist) and _rows_sharded(mesh):
+        raise ValueError(_ROW_BLACKLIST)
     progress_callback("Cross-validation", 0.0)
-    _, _, risks = scm_cv_grid_device(bm.data, fits, bm.n_columns, max_rules,
-                                     excl_rules=rule_blacklist)
+    if _rows_sharded(mesh):
+        _, _, risks = scm_cv_batch_device(bm.data, fits, bm.n_columns,
+                                          max_rules)
+    else:
+        _, _, risks = scm_cv_grid_device(bm.data, fits, bm.n_columns,
+                                         max_rules,
+                                         excl_rules=rule_blacklist)
     progress_callback("Cross-validation", 1.0)
 
     n_folds = len(folds)
@@ -620,11 +649,11 @@ def _cross_validation_device(dataset, split_name, model_types, p_values,
 
 
 def _full_train_device(dataset, split_name, model_type, p, max_rules,
-                       progress_callback, rule_blacklist=()):
+                       progress_callback, mesh=None, rule_blacklist=()):
     """Device-engine final training: one fit, model rebuilt on host."""
     split = dataset.get_split(split_name)
     labels = dataset.phenotype.metadata
-    bm = dataset.bit_matrix()
+    bm = dataset.bit_matrix(sharding=mesh_sharding(mesh))
 
     model = ConjunctionModel() if model_type == "conjunction" else DisjunctionModel()
     if max_rules == 0:
@@ -640,6 +669,8 @@ def _full_train_device(dataset, split_name, model_type, p, max_rules,
 
     progress_callback("Training", 0)
     if len(rule_blacklist):
+        if _rows_sharded(mesh):
+            raise ValueError(_ROW_BLACKLIST)
         # The grid engine's sweep excludes blacklisted rules: run the final
         # fit as a one-fit grid (test masks unused -> zeros).
         zero = np.zeros(bm.n_words, np.uint32)
@@ -665,7 +696,7 @@ def _full_train_device(dataset, split_name, model_type, p, max_rules,
             rule = rule.inverse()
         model.add(rule)
 
-    rc = KmerRuleClassifications(dataset)
+    rc = KmerRuleClassifications(dataset, sharding=mesh_sharding(mesh))
     if rule_idx:
         importances = _rule_importances(rc, rule_idx, tr)
     else:
@@ -716,8 +747,8 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
               max_rules=10, max_equiv_rules=10000, parameter_selection="cv",
               n_cpu=None, random_seed=None, authorized_rules="",
               bound_delta=None, bound_max_genome_size=None, engine="host",
-              progress_callback=None, warning_callback=None, error_callback=None,
-              device=None):
+              mesh=None, progress_callback=None, warning_callback=None,
+              error_callback=None, device=None):
     """Learn an SCM model (reference entry point experiment_scm.py:674-889).
 
     ``dataset_file`` is an artifact path, an in-memory artifact
@@ -737,10 +768,17 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
       (:class:`~grm_tpu_torch.parallel.scm_exact.ExactScmEngine`): all
       count sweeps stay on the device, selection is bit-identical to
       "host" (same rules, tie sets, fold risks, hyperparameters).
-      Blacklists supported.
+      Blacklists supported. Columns-only meshes run the same exact engine
+      over the column shards; row-sharded meshes take the pure-argmax scan
+      engine (documented divergence: exact-tied rules resolve to the
+      lowest index).
     - "device-argmax" — the pure-argmax grid engine (one matrix pass per
       greedy iteration for the whole CV); selected rules may differ from
       the reference among exactly tied candidates.
+
+    ``mesh``: a :class:`~grm_tpu_torch.parallel.mesh.Mesh` over which the
+    device engines shard the matrix; its devices must be of ``device``'s
+    type.
     """
     if engine not in ("host", "device", "device-argmax"):
         raise ValueError("unknown engine %r" % (engine,))
@@ -759,10 +797,21 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
     p = np.unique(np.atleast_1d(p))
 
     dataset = as_dataset(dataset_file, device=device)
+    if mesh is not None:
+        check_mesh(mesh, dataset.device)
+        if engine == "host":
+            mesh = None  # the host engine does not shard
+    if (engine in ("device", "device-argmax") and _rows_sharded(mesh)
+            and kmer_blacklist_file is not None):
+        error_callback(
+            Exception("The row-sharded scan engine does not support k-mer "
+                      "blacklists; use a columns-only mesh, --engine host, "
+                      "or run unsharded.")
+        )
     rule_blacklist = _find_rule_blacklist(dataset, kmer_blacklist_file,
                                           warning_callback)
 
-    if engine == "device-argmax":
+    if engine == "device-argmax" and mesh is None:
         # Matrices beyond the device memory budget come back as a
         # StreamingBitMatrix (host-resident); the argmax grid engine needs
         # a resident matrix. The EXACT engine (engine "device") streams
@@ -795,17 +844,17 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
             error_callback(
                 Exception("Cross-validation cannot be performed on a split with no folds.")
             )
-        if engine == "device":
+        if engine == "device" and not _rows_sharded(mesh):
             best_hp_score, best_hp, full_train_by_hp = (
                 _cross_validation_device_exact(
                     dataset, split_name, model_type, p, max_rules,
                     progress_callback, rule_blacklist=rule_blacklist,
-                    collect_full_train=True,
+                    mesh=mesh, collect_full_train=True,
                 ))
-        elif engine == "device-argmax":
+        elif engine in ("device", "device-argmax"):
             best_hp_score, best_hp = _cross_validation_device(
                 dataset, split_name, model_type, p, max_rules, progress_callback,
-                rule_blacklist=rule_blacklist,
+                mesh=mesh, rule_blacklist=rule_blacklist,
             )
         else:
             best_hp_score, best_hp = _cross_validation(
@@ -827,7 +876,7 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
         model = best_model
         equivalent_rules = best_predictor_equiv_rules
         rule_importances = best_rule_importances
-    elif engine == "device":
+    elif engine == "device" and not _rows_sharded(mesh):
         precomputed = None
         if parameter_selection == "cv":
             precomputed = full_train_by_hp.get(
@@ -835,12 +884,13 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
         model, rule_importances, equivalent_rules = _full_train_device_exact(
             dataset, split_name, best_hp["model_type"], best_hp["p"],
             best_hp["max_rules"], max_equiv_rules, rule_blacklist,
-            random_generator, progress_callback, precomputed=precomputed,
+            random_generator, progress_callback, mesh=mesh,
+            precomputed=precomputed,
         )
-    elif engine == "device-argmax":
+    elif engine in ("device", "device-argmax"):
         model, rule_importances, equivalent_rules = _full_train_device(
             dataset, split_name, best_hp["model_type"], best_hp["p"],
-            best_hp["max_rules"], progress_callback,
+            best_hp["max_rules"], progress_callback, mesh=mesh,
             rule_blacklist=rule_blacklist,
         )
     else:
@@ -872,7 +922,8 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
             model=model,
             delta=bound_delta,
             max_genome_size=bound_max_genome_size,
-            rule_classifications=KmerRuleClassifications(dataset),
+            rule_classifications=KmerRuleClassifications(
+                dataset, sharding=mesh_sharding(mesh)),
         )
 
     if len(test_example_idx) > 0:

@@ -105,10 +105,11 @@ class LazyKmerRuleList:
 class KmerRuleClassifications:
     """Device-backed rule classifications over the packed k-mer matrix."""
 
-    def __init__(self, dataset, n_rows=None):
+    def __init__(self, dataset, n_rows=None, sharding=None):
         self.dataset = dataset
         self.n_rows = int(n_rows if n_rows is not None else dataset.genome_count)
-        self.bit_matrix = dataset.bit_matrix()
+        # The run's matrix: ``sharding`` is the mesh placement it loaded.
+        self.bit_matrix = dataset.bit_matrix(sharding=sharding)
         self.n_kmers = self.bit_matrix.n_columns
 
     @property

@@ -356,9 +356,24 @@ class BitMatrix:
     numpy array, uploaded, or a (W, K) int32 tensor, wrapped as it lies
     (``device`` defaults to its own; another raises). ``n_columns`` below K
     marks the columns past it as padding, all zero.
+
+    ``columns_sharding`` (a :class:`~grm_tpu_torch.parallel.mesh.
+    MeshSharding`, the port's ``NamedSharding(mesh, P(None, "cols"))``)
+    places the matrix on a mesh instead: ``data`` is then a
+    :class:`~grm_tpu_torch.parallel.mesh.ShardedMatrix`, padded to the
+    shard grid, ``n_columns`` stays the unpadded width, and ``device`` is
+    the mesh's first device, where the sweeps' results land.
     """
 
-    def __init__(self, packed_u32, n_rows, device=None, n_columns=None):
+    def __init__(self, packed_u32, n_rows, device=None, n_columns=None,
+                 columns_sharding=None):
+        if columns_sharding is not None:
+            if n_columns is not None:  # the padding columns stay behind
+                packed_u32 = packed_u32[:, :n_columns]
+            data = columns_sharding.place(packed_u32)
+            self._init(data, n_rows, data.device, data.n_words,
+                       packed_u32.shape[1], columns_sharding)
+            return
         if isinstance(packed_u32, torch.Tensor):
             if packed_u32.dtype != torch.int32 or packed_u32.dim() != 2:
                 raise ValueError("BitMatrix expects a 2-D int32 tensor of "
@@ -376,24 +391,40 @@ class BitMatrix:
                 raise ValueError("BitMatrix expects a 2-D uint32-packed "
                                  "matrix.")
             data = masks_to_tensor(packed_u32, dev)
+        self._init(data, n_rows, dev, data.shape[0],
+                   data.shape[1] if n_columns is None else n_columns)
+
+    def _init(self, data, n_rows, dev, n_words, n_columns, sharding=None):
         self.n_rows = int(n_rows)
-        self.n_words, width = data.shape
-        self.n_columns = width if n_columns is None else int(n_columns)
-        if not 0 <= self.n_columns <= width:
-            raise ValueError("n_columns must be in [0, %d]" % width)
+        self.n_words = int(n_words)
+        self.n_columns = int(n_columns)
+        if not 0 <= self.n_columns <= data.shape[1]:
+            raise ValueError("n_columns must be in [0, %d]" % data.shape[1])
         if self.n_words * 32 < self.n_rows:
             raise ValueError("Packed matrix has too few word-rows for n_rows.")
         self.data = data
         self.device = dev
+        self.sharding = sharding  # the MeshSharding of ``data``, or None
+
+    @property
+    def sharded(self):
+        """Whether ``data`` is a ShardedMatrix on a mesh."""
+        return self.sharding is not None
 
     @classmethod
-    def from_u64(cls, m64, n_rows, device=None):
+    def from_u64(cls, m64, n_rows, device=None, sharding=None):
         """From the on-disk uint64 layout, split on the device
         (:func:`split_u64`); word rows past the last genome's (all padding
-        bits) are dropped."""
+        bits) are dropped. With ``sharding`` each column shard is split
+        straight onto its own device."""
         m64 = np.asarray(m64)
         n_words = min(-(-int(n_rows) // 32), 2 * m64.shape[0])
-        return cls(split_u64(m64, n_words, device), n_rows)
+        if sharding is None:
+            return cls(split_u64(m64, n_words, device), n_rows)
+        self = cls.__new__(cls)
+        data = sharding.place_u64(m64, n_words)
+        self._init(data, n_rows, data.device, n_words, m64.shape[1], sharding)
+        return self
 
     @classmethod
     def from_dense(cls, dense01, device=None):
@@ -418,8 +449,11 @@ class BitMatrix:
         (C, K) int64 numpy."""
         masks = masks_to_tensor(
             np.stack([self.row_mask(r) for r in rows_list]), self.device)
-        counts = popcount_colsum(self.data, masks)[:, :self.n_columns]
-        return counts.cpu().numpy().astype(np.int64)
+        if self.sharded:
+            counts = self.data.colsum(masks)
+        else:
+            counts = popcount_colsum(self.data, masks)
+        return counts[:, :self.n_columns].cpu().numpy().astype(np.int64)
 
     def sum_rows(self, rows):
         """Length-2K vector, presence then absence counts, in the minimum
@@ -440,8 +474,9 @@ class BitMatrix:
             return np.empty((self.n_rows, 0), np.uint8)
         if (cols < 0).any() or (cols >= self.n_columns).any():
             raise IndexError("column index out of range")
-        packed = _gather_columns(
-            self.data, torch.as_tensor(cols, device=self.device))
+        idx = torch.as_tensor(cols, device=self.device)
+        packed = (self.data.gather_columns(idx) if self.sharded
+                  else _gather_columns(self.data, idx))
         words = packed.cpu().numpy().view(np.uint32)  # (n, W)
         return unpack_binary_bytes_from_ints(words.T)[: self.n_rows]
 
@@ -460,6 +495,8 @@ class StreamingBitMatrix:
     2^22 columns here, but the width changes no count, so the chunks serve
     and no second layout is kept.
     """
+
+    sharding = None  # never on a mesh
 
     def __init__(self, packed_u32, n_rows, block_cols=None, device=None):
         packed = np.ascontiguousarray(packed_u32, dtype=np.uint32)

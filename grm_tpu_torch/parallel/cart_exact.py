@@ -1,5 +1,5 @@
 """Exact-parity device CART split selection (the port of
-``grm_tpu/parallel/cart_exact.py`` for one device).
+``grm_tpu/parallel/cart_exact.py``).
 
 The argmax engine (:mod:`grm_tpu_torch.parallel.cart_device`) resolves
 impurity ties to the lowest column in float32. This engine gives the
@@ -42,7 +42,7 @@ timer, and the tuple, gather and equivalence budgets with their x8
 re-runs; the kernels take a frontier and a matrix of any size, so a
 resident matrix is swept whole (``grm_tpu``'s ``_DeviceStream`` and
 ``GRM_MONOLITH_MAX_COLS`` existed because XLA could not compile long scans
-on the TPU). A ``mesh`` waits for the multi-device engines (ROADMAP.md).
+on the TPU).
 
 A :class:`~grm_tpu_torch.ops.popcount.StreamingBitMatrix` (past the device
 budget, in host memory) streams through the same kernels chunk by chunk
@@ -53,6 +53,12 @@ occurrence, then the lowest column at it; the lowest column of each
 tuple); the compacted columns are concatenated in ascending order. A
 chunk's columns become global by adding its first column in torch, which
 is exact, so no kernel takes a column base.
+
+A matrix sharded over a mesh (``mesh=``, or a matrix loaded sharded) is
+walked the same way, its column shards taking the chunks' place: each
+shard's passes run on its own device with the frontier's inputs copied
+there, and their results come to the mesh's first device for the same
+merges (a shard of padding only is skipped).
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..learning.cart import MESH_MESSAGE, score_candidates_f64
+from ..learning.cart import score_candidates_f64
 from ..ops.cart_exact import (
     S_MAX,
     cart_exact_select,
@@ -71,7 +77,8 @@ from ..ops.cart_exact import (
 )
 from ..ops.cart_sweep import NO_COLUMN, cart_frontier_scores
 from ..ops.popcount import StreamingBitMatrix, masks_to_tensor
-from .cart_device import _frontier_masks, _per_node_dicts
+from .cart_device import _frontier_masks, _per_node_dicts, sharded_data
+from .mesh import ShardedMatrix
 from .scm_device import build_packed_mask
 
 __all__ = ["S_MAX", "cart_frontier_candidates", "resolve_equiv_specs"]
@@ -127,11 +134,11 @@ class _HostStream:
 
 class _Frontier:
     """A frontier's device inputs: masks, counts, scales and train masks,
-    with its matrix (resident, or streamed by chunks) and the matrix's
-    column-exclusion mask."""
+    with its matrix (resident, sharded over a mesh, or streamed by chunks)
+    and the matrix's column-exclusion mask."""
 
     def __init__(self, bit_matrix, masks, n_node, priors, totals,
-                 train_masks, excl):
+                 train_masks, excl, mesh=None):
         dev = self.device = bit_matrix.device
         self.n_kmers = bit_matrix.n_columns
         self.masks = masks_to_tensor(masks, dev)
@@ -141,19 +148,28 @@ class _Frontier:
         self.totals = torch.from_numpy(totals).to(dev)
         # The scales pass 1 scores with (ops/cart_sweep._frontier_scores).
         self.scale = (self.priors / self.totals).contiguous()
-        self.matrix = self.excl = self.stream = None
+        self.matrix = self.excl = self.stream = self.shards = None
         if isinstance(bit_matrix, StreamingBitMatrix):
             self.stream = _HostStream.cached(bit_matrix, excl)
             return
-        self.matrix = bit_matrix.data
+        data = bit_matrix.data if mesh is None else sharded_data(bit_matrix,
+                                                                 mesh)
+        if isinstance(data, ShardedMatrix):
+            self.matrix = data
+            self.shards = _shard_chunks(data, self.n_kmers, excl)
+            return
+        self.matrix = data
         if excl is not None:
             self.excl = torch.from_numpy(np.ascontiguousarray(
                 excl, dtype=bool).view(np.uint8)).to(dev)
 
     def chunks(self):
         """(first column, limit, matrix, exclusion mask) of the resident
-        matrix whole, or of each chunk of a streamed one."""
-        if self.stream is None:
+        matrix whole, of each shard of a sharded one, or of each chunk of a
+        streamed one."""
+        if self.shards is not None:
+            yield from self.shards
+        elif self.stream is None:
             yield 0, self.n_kmers, self.matrix, self.excl
         else:
             yield from self.stream.chunks()
@@ -162,6 +178,9 @@ class _Frontier:
         """(W, len(cols)) uint32 numpy: the packed columns ``cols``."""
         if self.stream is None:
             idx = torch.as_tensor(cols, device=self.device)
+            if self.shards is not None:
+                return self.matrix.gather_columns(idx).T.cpu().numpy().view(
+                    np.uint32)
             return self.matrix.index_select(1, idx).cpu().numpy().view(
                 np.uint32)
         return self.stream.source.columns(cols).T
@@ -179,9 +198,11 @@ class _Frontier:
         masks, train, nn, scale = self.rows(idx)
         node_of, cols, lefts, occs = [], [], [], []
         for lo, limit, matrix, excl in self.chunks():
+            dev = matrix.device
             starts, col, left, occ = cart_exact_select(
-                matrix, masks, train, nn, scale, criterion, limit, mode,
-                excl=excl, **per_node)
+                matrix, masks.to(dev), train.to(dev), nn.to(dev),
+                scale.to(dev), criterion, limit, mode, excl=excl,
+                **{k: v.to(dev) for k, v in per_node.items()})
             node_of.append(np.repeat(np.arange(len(idx)),
                                      np.diff(starts.cpu().numpy())))
             cols.append(col.cpu().numpy().astype(np.int64) + lo)
@@ -197,6 +218,24 @@ class _Frontier:
         return (starts, np.concatenate(cols)[order],
                 np.concatenate(lefts, 1)[:, order],
                 np.concatenate(occs)[order])
+
+
+def _shard_chunks(matrix, n_kmers, excl):
+    """(first column, limit, shard, its exclusion mask) of each column
+    shard of ``matrix`` that holds a real column, in ascending order."""
+    lk = matrix.local_k
+    full = None
+    if excl is not None:
+        full = np.zeros(matrix.shape[1], np.uint8)
+        lim = min(len(excl), n_kmers)
+        full[:lim] = np.asarray(excl[:lim], bool)
+    out = []
+    for lo, shard in matrix.column_shards():
+        limit = min(max(n_kmers - lo, 0), lk)
+        if limit:
+            out.append((lo, limit, shard, None if full is None else
+                        torch.from_numpy(full[lo:lo + lk]).to(shard.device)))
+    return out
 
 
 def _train_masks(bit_matrix, train_example_idx, w):
@@ -224,6 +263,7 @@ def cart_frontier_candidates(bit_matrix, node_example_sets, altered_priors,
     identity tiebreak (the lowest column). ``defer_equiv``: per-node bools,
     True returns the winning-tuple spec (``equiv_spec``) instead of
     compacting the equivalence set now (:func:`resolve_equiv_specs`).
+    ``mesh``: a ("rows", "cols") mesh whose column shards the passes walk.
 
     Returns a list per node: ``None`` when no valid split exists (exactly
     when the host's float64 minimum is +inf), else one of
@@ -237,8 +277,6 @@ def cart_frontier_candidates(bit_matrix, node_example_sets, altered_priors,
       candidates cover the float64 minimum tie set, and the selection
       replays in the tree.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_MESSAGE)
     n = len(node_example_sets)
     if n == 0:
         return []
@@ -254,15 +292,19 @@ def cart_frontier_candidates(bit_matrix, node_example_sets, altered_priors,
     occ_tiebreak = [True] * n if occ_tiebreak is None else list(occ_tiebreak)
     defer_equiv = [False] * n if defer_equiv is None else list(defer_equiv)
     front = _Frontier(bit_matrix, masks, n_node, priors, totals,
-                      _train_masks(bit_matrix, train_example_idx, w), excl)
+                      _train_masks(bit_matrix, train_example_idx, w), excl,
+                      mesh)
 
     # Pass 1: per-node float32 minima, the frontier sweep's own, reduced
-    # over the chunks of a streamed matrix.
+    # over the chunks of a streamed matrix or the shards of a sharded one.
     gmin = None
     for _, limit, matrix, chunk_excl in front.chunks():
+        dev = matrix.device
         _, g = cart_frontier_scores(
-            matrix, front.masks, front.n_node, front.priors, front.totals,
-            crit, limit, excl=chunk_excl)
+            matrix, front.masks.to(dev), front.n_node.to(dev),
+            front.priors.to(dev), front.totals.to(dev), crit, limit,
+            excl=chunk_excl)
+        g = g.to(front.device)
         gmin = g if gmin is None else torch.minimum(gmin, g)
     thresh = _thresh_from_gmin(gmin, float(c)).contiguous()
 
@@ -288,8 +330,10 @@ def _run_tuple_regime(out, t_idx, front, thresh, n_node, crit, classes,
     th = thresh[sel].contiguous()
     occ_tab = col_tab = None
     for lo, limit, matrix, excl in front.chunks():
-        occ, col, table_off = cart_exact_tuples(
-            matrix, masks, train, nn, scale, th, crit, limit, excl=excl)
+        dev = matrix.device
+        occ, col, table_off = (t.to(front.device) for t in cart_exact_tuples(
+            matrix, masks.to(dev), train.to(dev), nn.to(dev), scale.to(dev),
+            th.to(dev), crit, limit, excl=excl))
         if occ_tab is None:
             occ_tab, col_tab = occ, col
             continue
@@ -403,8 +447,6 @@ def resolve_equiv_specs(bit_matrix, node_example_sets, train_example_idx,
     keys, occmax) as returned in ``equiv_spec`` payloads. Returns a list of
     ascending int64 rule-column arrays.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_MESSAGE)
     n = len(node_example_sets)
     if n == 0:
         return []
@@ -414,7 +456,7 @@ def resolve_equiv_specs(bit_matrix, node_example_sets, train_example_idx,
         bit_matrix, node_example_sets, dummy, dummy)
     front = _Frontier(bit_matrix, masks, n_node, priors, totals,
                       _train_masks(bit_matrix, train_example_idx,
-                                   masks.shape[2]), excl)
+                                   masks.shape[2]), excl, mesh)
     return _resolve_equiv(front, [
         (i, np.asarray(spec[0], np.int64), int(spec[1]))
         for i, spec in enumerate(specs)])

@@ -32,13 +32,13 @@ __all__ = ["grow_trees_batched"]
 
 def _group_key(request):
     """Requests that may share one device call: the criterion is fixed per
-    launch, the matrix must match, the launch takes one exclusion mask
-    (identical blacklists still batch), and one engine serves it."""
+    launch, the matrix and mesh must match, the launch takes one exclusion
+    mask (identical blacklists still batch), and one engine serves it."""
     excl_key = (
         None if request.excl is None else request.excl.tobytes()
     )
-    return (request.criterion, id(request.bit_matrix), excl_key,
-            request.exact)
+    return (request.criterion, id(request.bit_matrix), request.mesh,
+            excl_key, request.exact)
 
 
 def grow_trees_batched(jobs):
@@ -48,8 +48,8 @@ def grow_trees_batched(jobs):
     ``classifier.fit_stepwise(**fit_kwargs)`` drives each tree. Trees using
     the host engine (which never yield) simply complete during their first
     advance. Each round, the pending frontier requests of all live trees
-    are grouped by (criterion, matrix, blacklist, engine) and every group is
-    scored in ONE device call with per-node priors; trees of different
+    are grouped by (criterion, matrix, mesh, blacklist, engine) and every
+    group is scored in ONE device call with per-node priors; trees of different
     depths batch freely (level-synchrony matters within a tree, not across
     trees).
 
@@ -139,11 +139,11 @@ def _service_batched(head, node_sets, priors, totals, trains, equivs, occs,
         return [
             ("exact", d) for d in cart_frontier_candidates(
                 head.bit_matrix, node_sets, priors, totals, head.criterion,
-                trains, excl=head.excl, need_equiv=equivs,
+                trains, excl=head.excl, mesh=head.mesh, need_equiv=equivs,
                 occ_tiebreak=occs, defer_equiv=defers,
             )
         ]
     return cart_frontier_splits_device(
         head.bit_matrix, node_sets, priors, totals, head.criterion,
-        excl=head.excl,
+        excl=head.excl, mesh=head.mesh,
     )

@@ -1,12 +1,21 @@
-"""Iteration-major SCM CV grid engine on one device (the "device-argmax"
-engine's CV): each greedy iteration makes one pass over the packed matrix
-and scores every fit at once.
+"""Iteration-major SCM CV grid engine (the "device-argmax" engine's CV):
+each greedy iteration makes one pass over the packed matrix and scores
+every fit at once.
 
-Port of ``scm_cv_grid_device`` from ``grm_tpu/parallel/scm_grid.py``. The
-sweep is the ``scm_sweep`` kernel's argmax epilogue with its torch phase 2
+Port of ``grm_tpu/parallel/scm_grid.py``. The sweep is the ``scm_sweep``
+kernel's argmax epilogue with its torch phase 2
 (:func:`grm_tpu_torch.ops.scm_sweep.scm_utility_argmax`). That epilogue
 takes the rule-exclusion mask (the k-mer blacklist), so one kernel serves
 both of the JAX engine's sweeps (the XLA block scan and the Pallas kernel).
+
+A matrix whose columns are sharded over a mesh's ``cols`` axis runs the
+same iterations: the sweep walks the column shards (a resident matrix is
+one), each on its own device with the shard's count of real columns as the
+kernel's column limit, the per-shard winners come to the first device, and
+per fit and half the first shard at the maximum wins (shards ascend by
+column, so the lowest global column wins ties, presence beating absence as
+unsharded); the winning column comes from its owner shard.
+:func:`scm_cv_grid_sharded` is ``grm_tpu``'s name for it.
 
 Selection semantics match the JAX engine exactly under exact float32
 arithmetic: pure argmax utility (no isclose tie sets), ties to the lowest
@@ -20,10 +29,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.popcount import _gather_columns, masks_to_tensor, popcount_rows
+from ..ops.popcount import masks_to_tensor, popcount_rows
 from ..ops.scm_sweep import scm_utility_argmax
+from .mesh import (MeshSharding, ShardedMatrix, _columns, column_shards,
+                   shard_limit)
 
-__all__ = ["scm_cv_grid_device"]
+__all__ = ["scm_cv_grid_device", "scm_cv_grid_sharded"]
 
 
 def _fold_risks(conj, tpos, tneg, n_tpos, n_tneg, is_disj):
@@ -34,11 +45,6 @@ def _fold_risks(conj, tpos, tneg, n_tpos, n_tneg, is_disj):
     conj_errors = (n_tpos - pos_pred1) + neg_pred1
     disj_errors = pos_pred1 + (n_tneg - neg_pred1)
     return torch.where(is_disj, disj_errors, conj_errors) / n_test
-
-
-def _fetch_columns(matrix, cols):
-    """(F,) per-fit column indices -> (F, W) packed columns."""
-    return _gather_columns(matrix, cols)
 
 
 def _apply_rule(state, bits, use_abs, best_col, step_i, n_kmers):
@@ -63,17 +69,42 @@ def _apply_rule(state, bits, use_abs, best_col, step_i, n_kmers):
     return state
 
 
+def _sweep(matrix, args, n_kmers, excl):
+    """``scm_utility_argmax`` on each column shard of ``matrix`` (a resident
+    matrix is one), combined on its (first) device: per fit and half the
+    first shard at the maximum, its column made global in int64. ``excl``:
+    one (2, width) mask or None a shard. A later shard of padding only is
+    skipped: its winners would be -inf."""
+    best = None
+    for (lo, shard), shard_excl in zip(column_shards(matrix), excl):
+        limit = shard_limit(n_kmers, lo, shard)
+        if lo and limit == 0:
+            continue
+        dev = shard.device
+        bpu, bpi, bau, bai = (t.to(matrix.device) for t in scm_utility_argmax(
+            shard, *[a.to(dev) for a in args], limit, excl=shard_excl))
+        bpi, bai = bpi.to(torch.int64) + lo, bai.to(torch.int64) + lo
+        if best is None:
+            best = [bpu, bpi, bau, bai]
+            continue
+        take_p, take_a = bpu > best[0], bau > best[2]
+        best = [torch.where(take_p, bpu, best[0]),
+                torch.where(take_p, bpi, best[1]),
+                torch.where(take_a, bau, best[2]),
+                torch.where(take_a, bai, best[3])]
+    return best
+
+
 def _grid_step(matrix, state, step_i, n_kmers, excl):
     """One greedy SCM iteration for all fits: one pass over the matrix."""
     n_neg = popcount_rows(state["neg"]).to(torch.int32)
     n_pos = popcount_rows(state["pos"]).to(torch.int32)
-    bpu, bpi, bau, bai = scm_utility_argmax(
-        matrix, state["neg"], state["pos"], n_neg, n_pos, state["ps"],
-        n_kmers, excl=excl)
+    args = (state["neg"], state["pos"], n_neg, n_pos, state["ps"])
+    bpu, bpi, bau, bai = _sweep(matrix, args, n_kmers, excl)
     # Presence wins ties against absence (argmax-over-concat semantics).
     use_abs = bau > bpu
     best_col = torch.where(use_abs, bai, bpi)
-    packed = _fetch_columns(matrix, best_col)
+    packed = _columns(matrix, best_col, state["pos"].shape[1])
     bits = torch.where(use_abs[:, None], ~packed, packed)
     return _apply_rule(state, bits, use_abs, best_col, step_i, n_kmers)
 
@@ -113,31 +144,64 @@ def _init_state(pos, neg, tpos, tneg, is_disj, n_fits, max_rules):
 def scm_cv_grid_device(matrix, fits, n_kmers, max_rules, excl_rules=None):
     """Run the batched CV fits, iteration-major, on the matrix's device.
 
-    ``matrix``: (W, K) int32 packed presence tensor. ``fits``: list of
-    dicts with keys pos_mask, neg_mask, test_pos_mask, test_neg_mask (numpy
-    uint32 (W,)), p (float), model_type (str). ``excl_rules`` (optional int
-    array, values in [0, 2K)): blacklisted rules (presence idx k, absence
-    idx k + n_kmers) excluded from selection (experiment_scm.py:632-671).
-    Returns numpy (rules (F, max_rules) int32 [-1 pad], n_rules (F,) int32,
-    risks (F, max_rules+1) float32).
+    ``matrix``: (W, K) int32 packed presence tensor, or a
+    :class:`~grm_tpu_torch.parallel.mesh.ShardedMatrix` of one row of
+    devices, swept shard by shard. ``fits``: list of dicts with keys
+    pos_mask, neg_mask, test_pos_mask, test_neg_mask (numpy uint32 (W,)), p
+    (float), model_type (str). ``excl_rules`` (optional int array, values
+    in [0, 2K)): blacklisted rules (presence idx k, absence idx k +
+    n_kmers) excluded from selection (experiment_scm.py:632-671); the
+    exclusion mask shards with the columns. Returns numpy (rules (F,
+    max_rules) int32 [-1 pad], n_rules (F,) int32, risks (F, max_rules+1)
+    float32).
     """
-    if matrix.dtype != torch.int32 or matrix.dim() != 2:
+    if isinstance(matrix, ShardedMatrix):
+        if matrix.mesh.shape["rows"] != 1:
+            raise ValueError(
+                "scm_cv_grid_sharded shards columns only; use the scan "
+                "engine for row-sharded matrices"
+            )
+    elif matrix.dtype != torch.int32 or matrix.dim() != 2:
         raise ValueError("grid engine expects a (W, K) int32 packed matrix")
+    excl = _excl_mask(excl_rules, n_kmers, matrix.shape[1])
+    excl = [None if excl is None else torch.from_numpy(np.ascontiguousarray(
+        excl[:, lo:lo + shard.shape[1]])).to(shard.device)
+        for lo, shard in column_shards(matrix)]
+    return _run_grid(matrix, fits, n_kmers, max_rules, excl)
+
+
+def scm_cv_grid_sharded(matrix, fits, n_kmers, max_rules, mesh,
+                        excl_rules=None):
+    """Column-sharded CV grid engine over a ("rows", "cols") mesh
+    (``grm_tpu``'s name): :func:`scm_cv_grid_device` on ``matrix`` placed
+    on ``mesh``. ``matrix``: a ShardedMatrix on ``mesh``, or a (W, K)
+    uint32 array or int32 tensor, which is placed on it. Requires an
+    unsharded word-row axis (``rows`` size 1): row-sharded matrices take the
+    scan engine.
+    """
+    if not (isinstance(matrix, ShardedMatrix) and matrix.mesh == mesh):
+        matrix = MeshSharding(mesh).place(matrix)
+    return scm_cv_grid_device(matrix, fits, n_kmers, max_rules, excl_rules)
+
+
+def _excl_mask(excl_rules, n_kmers, width):
+    """(2, width) uint8 numpy exclusion mask of a blacklist, or None."""
+    if excl_rules is None or not len(excl_rules):
+        return None
+    excl = np.zeros((2, width), np.uint8)
+    er = np.asarray(excl_rules, np.int64)
+    excl[0, er[er < n_kmers]] = 1
+    excl[1, er[er >= n_kmers] - n_kmers] = 1
+    return excl
+
+
+def _run_grid(matrix, fits, n_kmers, max_rules, excl):
     dev = matrix.device
     pos, neg, tpos, tneg, ps, is_disj = _build_fit_arrays(fits)
     n_fits = len(fits)
     conj, rules, risks, n_rules, active, n_tpos, n_tneg = _init_state(
         pos, neg, tpos, tneg, is_disj, n_fits, max_rules
     )
-
-    excl = None
-    if excl_rules is not None and len(excl_rules):
-        excl_np = np.zeros((2, matrix.shape[1]), np.uint8)
-        er = np.asarray(excl_rules, np.int64)
-        excl_np[0, er[er < n_kmers]] = 1
-        excl_np[1, er[er >= n_kmers] - n_kmers] = 1
-        excl = torch.from_numpy(excl_np).to(dev)
-
     state = {
         "pos": masks_to_tensor(pos, dev), "neg": masks_to_tensor(neg, dev),
         "conj": masks_to_tensor(conj, dev),

@@ -16,8 +16,8 @@ Port of ``grm_tpu/pipeline.py``. Two ingests:
 
 :func:`train_scm` fits SCM on either through the argmax engine's
 full-train fit (:func:`grm_tpu_torch.parallel.mesh.scm_fit_batch_device`,
-one ``popcount_colsum`` launch a greedy step). Device meshes are not
-ported yet (ROADMAP.md, Queue 1 item 11).
+one ``popcount_colsum`` launch a greedy step, one a shard over a ``mesh``,
+where the matrix is placed column-sharded as ``grm_tpu`` places it).
 """
 
 from __future__ import annotations
@@ -37,25 +37,22 @@ from .ops.kmer import decode_kmers, encode_contigs
 from .ops.popcount import BitMatrix, masks_to_tensor
 from .parallel.device_build import (build_matrix_device,
                                     build_matrix_device_batched)
-from .parallel.mesh import scm_fit_batch_device
+from .parallel.mesh import MeshSharding, check_mesh, scm_fit_batch_device
 from .parallel.scm_device import build_packed_mask
 from .utils import fasta_to_sequences, unpack_binary_bytes_from_ints
 
 __all__ = ["InMemoryDataset", "DeviceDataset", "train_scm", "PipelineResult"]
 
-MESH_MESSAGE = (
-    "train_scm over a device mesh is not ported yet (ROADMAP.md, Queue 1 "
-    "item 11: multi-device paths); pass mesh=None")
-
 
 class InMemoryDataset:
     """A :class:`KmerMatrix` + labels exposing the surface the learners
-    need. ``device`` (default ``"cuda"``) holds the bit matrix."""
+    need. ``device`` (default ``"cuda"``) holds the bit matrix; a
+    ``sharding`` (:class:`~grm_tpu_torch.parallel.mesh.MeshSharding`)
+    places it on a mesh instead."""
 
     def __init__(self, km: KmerMatrix, labels_by_genome_id, sharding=None,
                  device=None):
-        if sharding is not None:
-            raise NotImplementedError(MESH_MESSAGE)
+        self._sharding = sharding
         self.device = resolve_device(device)
         self.km = km
         self.genome_count = km.n_genomes
@@ -71,13 +68,11 @@ class InMemoryDataset:
                      filter_singleton=False, sharding=None, device=None):
         """Host ingest: per-genome counting on the card + the host union
         merge. ``genome_specs``: (genome id, FASTA path) pairs."""
-        if sharding is not None:
-            raise NotImplementedError(MESH_MESSAGE)
         dev = resolve_device(device)
         gks = [count_fasta(path, k, genome_id=gid, device=dev)
                for gid, path in genome_specs]
         km = build_presence_matrix(gks, filter_singleton=filter_singleton)
-        return cls(km, labels_by_genome_id, device=dev)
+        return cls(km, labels_by_genome_id, sharding=sharding, device=dev)
 
     @classmethod
     def from_contigs_device(cls, genome_specs, labels_by_genome_id, k,
@@ -105,11 +100,14 @@ class InMemoryDataset:
         return DeviceDataset(dm, labels_by_genome_id)
 
     def bit_matrix(self, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(MESH_MESSAGE)
-        if self._bm is None:
+        """The packed matrix on ``sharding`` (else the dataset's own),
+        built anew when the sharding asked for is not that of the one
+        kept."""
+        sharding = sharding or self._sharding
+        if self._bm is None or self._bm.sharding != sharding:
+            self._bm = None
             self._bm = BitMatrix.from_u64(self.km.matrix, self.km.n_genomes,
-                                          self.device)
+                                          self.device, sharding=sharding)
         return self._bm
 
     def get_matrix_columns(self, columns):
@@ -137,10 +135,21 @@ class DeviceDataset:
             [int(labels_by_genome_id[g]) for g in device_matrix.genome_ids],
             dtype=np.uint8)
         self._bm = device_matrix.bit_matrix()
+        self.device = self._bm.device
+        self._sharded = {}
         self.km = _DeviceKmerView(device_matrix)
 
     def bit_matrix(self, sharding=None):
-        return self._bm
+        """The card's matrix, or its copy placed on ``sharding`` (made once
+        per sharding)."""
+        if sharding is None:
+            return self._bm
+        if sharding not in self._sharded:
+            bm = self._bm
+            self._sharded[sharding] = BitMatrix(
+                bm.data, bm.n_rows, n_columns=bm.n_columns,
+                columns_sharding=sharding)
+        return self._sharded[sharding]
 
     def get_matrix_columns(self, columns):
         """(genomes, len(columns)) uint8: presence for a column below
@@ -189,10 +198,11 @@ def train_scm(dataset, model_type="conjunction", p=1.0, max_rules=10,
     """Greedy SCM on the in-memory matrix with the argmax engine's fit.
 
     The split mirrors the reference (RandomState shuffle, ceil of the
-    proportion). Returns the fitted model and train/test metrics.
+    proportion). Returns the fitted model and train/test metrics. With a
+    ``mesh`` the matrix is placed column-sharded on it
+    (``grm_tpu/pipeline.py:191-196``) and each greedy step counts shard by
+    shard.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_MESSAGE)
     rngen = np.random.RandomState(random_seed)
     n = dataset.genome_count
     idx = np.arange(n)
@@ -206,7 +216,11 @@ def train_scm(dataset, model_type="conjunction", p=1.0, max_rules=10,
     if model_type == "disjunction":
         pos, neg = neg, pos
 
-    bm = dataset.bit_matrix()
+    sharding = None
+    if mesh is not None:
+        check_mesh(mesh, dataset.device)
+        sharding = MeshSharding(mesh)
+    bm = dataset.bit_matrix(sharding=sharding)
     rules_arr, _, _ = scm_fit_batch_device(
         bm.data,
         masks_to_tensor(build_packed_mask(pos, n, bm.n_words)[None],

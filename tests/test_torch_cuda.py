@@ -679,3 +679,163 @@ def test_from_u64_peak_memory(cuda):
     assert 0 < peak <= bound
     _same(bm.data, torch.from_numpy(
         pc.u64_matrix_to_u32(m64)[:11].view(np.int32)))
+
+
+# -- the sharded engines on meshes of a repeated card --------------------------
+
+def _card_mesh(rows=1, n=4):
+    from grm_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, row_devices=rows,
+                     devices=[torch.device("cuda", 0)] * n)
+
+
+def _sharded_pair(cuda, rng, rows=1, n_kmers=40003):
+    """(labels, resident BitMatrix, the same matrix over a mesh of four
+    cuda:0): K = 40,003 leaves the last of 4 shards 3 padding columns."""
+    from grm_tpu_torch.parallel.mesh import MeshSharding
+
+    labels, resident, _ = _streamed_pair(cuda, rng, n_kmers=n_kmers)
+    packed = resident.data.cpu().numpy().view(np.uint32)
+    sharded = pc.BitMatrix(packed, resident.n_rows,
+                           columns_sharding=MeshSharding(_card_mesh(rows)))
+    return labels, resident, sharded
+
+
+def _cv_fits(resident, labels, with_lookup=False):
+    from grm_tpu_torch.parallel.scm_exact import _make_risk_lookup
+
+    rng = np.random.RandomState(3)
+    k = resident.n_columns
+    fits = []
+    for model_type in ("conjunction", "disjunction"):
+        for p in (0.5, 1.0, 4.0):
+            pos = np.where(labels == 1)[0]
+            neg = np.where(labels == 0)[0]
+            if model_type == "disjunction":
+                pos, neg = neg, pos
+            fit = {"pos_mask": resident.row_mask(pos[5:]),
+                   "neg_mask": resident.row_mask(neg[5:]),
+                   "test_pos_mask": resident.row_mask(pos[:5]),
+                   "test_neg_mask": resident.row_mask(neg[:5]),
+                   "p": p, "model_type": model_type}
+            if with_lookup:
+                fit["risk_lookup"] = _make_risk_lookup(rng.rand(k),
+                                                       rng.rand(k), k)
+            fits.append(fit)
+    return fits
+
+
+def test_sharded_counts_and_load_on_the_card(cuda):
+    """Column sums over a (2, 2) mesh of cuda:0 (the row shards' sums
+    added) equal the resident sweep; the sharded load from the uint64
+    layout equals the CPU's placement, shard for shard."""
+    from grm_tpu_torch.parallel.mesh import MeshSharding
+
+    rng = np.random.RandomState(21)
+    labels, resident, sharded = _sharded_pair(cuda, rng, rows=2)
+    rows = [np.where(labels == 1)[0], np.arange(0, 342, 3)]
+    np.testing.assert_array_equal(sharded.presence_counts(rows),
+                                  resident.presence_counts(rows))
+    m64 = rng.randint(0, 2**63, size=(6, 5003), dtype=np.int64).astype(
+        np.uint64)
+    for mesh in (_card_mesh(), _card_mesh(2)):
+        card = pc.BitMatrix.from_u64(m64, 342, sharding=MeshSharding(mesh))
+        host = pc.BitMatrix.from_u64(m64, 342, sharding=MeshSharding(
+            type(mesh)([[torch.device("cpu")] * len(r) for r in
+                        mesh.devices])))
+        for rc, rh in zip(card.data.shards, host.data.shards):
+            for a, b in zip(rc, rh):
+                _same(a, b)
+        cols = np.array([0, 1250, 1251, 5002])
+        np.testing.assert_array_equal(card.get_columns_dense(cols),
+                                      host.get_columns_dense(cols))
+
+
+@pytest.mark.parametrize("blacklist", [False, True])
+def test_sharded_grid_engine_equals_unsharded_on_the_card(cuda, blacklist):
+    from grm_tpu_torch.parallel.scm_grid import (scm_cv_grid_device,
+                                                 scm_cv_grid_sharded)
+
+    labels, resident, sharded = _sharded_pair(cuda,
+                                              np.random.RandomState(5))
+    k = resident.n_columns
+    fits = _cv_fits(resident, labels)
+    excl = [17, 17 + k, 20001, 39999, 40002 + k] if blacklist else None
+    want = scm_cv_grid_device(resident.data, fits, k, 6, excl_rules=excl)
+    got = scm_cv_grid_sharded(sharded.data, fits, k, 6,
+                              sharded.data.mesh, excl_rules=excl)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_sharded_scan_engine_equals_grid_on_the_card(cuda):
+    """The scan engine on a (2, 2) mesh of cuda:0 gives the unsharded grid
+    engine's rules (both pure argmax) and its own unsharded run's risks."""
+    from grm_tpu_torch.parallel.scm_device import scm_cv_batch_device
+    from grm_tpu_torch.parallel.scm_grid import scm_cv_grid_device
+
+    labels, resident, sharded = _sharded_pair(cuda, np.random.RandomState(6),
+                                              rows=2)
+    k = resident.n_columns
+    fits = _cv_fits(resident, labels)
+    got = scm_cv_batch_device(sharded.data, fits, k, 6)
+    want = scm_cv_batch_device(resident.data, fits, k, 6)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        got[0], scm_cv_grid_device(resident.data, fits, k, 6)[0])
+
+
+def test_sharded_exact_scm_engine_equals_resident_on_the_card(cuda):
+    from grm_tpu_torch.parallel.scm_exact import ExactScmEngine
+
+    labels, resident, sharded = _sharded_pair(cuda, np.random.RandomState(4))
+    k = resident.n_columns
+    fits = _cv_fits(resident, labels, with_lookup=True)
+    want = ExactScmEngine(resident.data, k).run_fits(fits, 5, True)
+    got = ExactScmEngine(sharded.data, k).run_fits(fits, 5, True)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g, w)
+    assert [[t.tolist() for t in f] for f in got[4]] == \
+        [[t.tolist() for t in f] for f in want[4]]
+
+
+@pytest.mark.parametrize("criterion", cs.CRITERIA)
+def test_sharded_cart_engines_equal_resident_on_the_card(cuda, criterion):
+    """The argmax scorer and the exact engine's payloads over four shards
+    of cuda:0 equal the resident runs: two classes (tuple tables) and three
+    (the root's lattice past 65,536: the gather regime)."""
+    from grm_tpu_torch.parallel.cart_device import (
+        cart_frontier_splits_device, cart_frontier_splits_sharded)
+    from grm_tpu_torch.parallel.cart_exact import cart_frontier_candidates
+
+    labels, resident, sharded = _sharded_pair(cuda, np.random.RandomState(7))
+    mesh = sharded.data.mesh
+    idx = np.arange(len(labels))
+    for classes in (2, 3):
+        y = labels if classes == 2 else idx % 3
+        nodes = [{c: idx[y == c] for c in range(classes)},
+                 {c: idx[y == c][:40] for c in range(classes)}]
+        priors = {c: 1.0 / classes for c in range(classes)}
+        totals = {c: float((y == c).sum()) for c in range(classes)}
+        excl = np.zeros(resident.n_columns, bool)
+        excl[[17, 40002]] = True
+        for ex in (None, excl):
+            assert cart_frontier_splits_sharded(
+                resident, nodes, priors, totals, criterion, mesh,
+                excl=ex) == cart_frontier_splits_device(
+                    resident, nodes, priors, totals, criterion, excl=ex)
+        args = (nodes, priors, totals, criterion, [idx, idx[:200]])
+        want = cart_frontier_candidates(resident, *args)
+        got = cart_frontier_candidates(sharded, *args, mesh=mesh)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for key in g:
+                if isinstance(g[key], dict):
+                    for c in g[key]:
+                        np.testing.assert_array_equal(g[key][c], w[key][c])
+                else:
+                    np.testing.assert_array_equal(g[key], w[key])
+        if classes == 3:
+            assert "cols" in want[0]  # the gather regime ran

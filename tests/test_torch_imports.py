@@ -40,6 +40,8 @@ from grm_tpu_torch.pipeline import InMemoryDataset
 from grm_tpu_torch.kmer.counter import count_fasta
 from grm_tpu_torch.dataset import MemoryArtifact, from_contigs
 from grm_tpu_torch.cli import main as cli_main
+from grm_tpu_torch.parallel.build import build_presence_matrix_distributed
+from grm_tpu_torch.parallel.mesh import make_mesh
 
 calls = [
     lambda: resolve_device(),
@@ -60,6 +62,9 @@ calls = [
     lambda: from_contigs("unused.tsv", MemoryArtifact(), 9),
     lambda: cli_main(["dataset", "create", "from-contigs", "--genomic-data",
                       "unused.tsv", "--output", "unused.h5"]),
+    lambda: learn_SCM("unused.h5", "sp", "conjunction", 1.0, engine="device",
+                      mesh=make_mesh(2, devices=["cpu", "cpu"])),
+    lambda: build_presence_matrix_distributed([("g", "unused.fna")], 9),
 ]
 for call in calls:
     try:
@@ -69,6 +74,12 @@ for call in calls:
     else:
         raise AssertionError("ran without CUDA")
 assert resolve_device("cpu").type == "cpu"
+try:  # the default mesh is every CUDA device: none here
+    make_mesh()
+except ValueError as e:
+    assert "0 given" in str(e), e
+else:
+    raise AssertionError("a mesh without devices")
 for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
                "ops.cart_exact", "parallel.cart_device",
                "parallel.cart_exact", "parallel.cart_forest",
@@ -76,7 +87,9 @@ for module in ("learning.tree", "learning.cart", "ops.cart_sweep",
                "ops.device_build", "parallel.device_build", "pipeline",
                "hostmem", "native.bindings", "kmer.counter", "kmer.matrix",
                "dataset.create", "dataset.split", "collect", "collect.amr",
-               "collect.patric", "settings", "results_site", "profiling"):
+               "collect.patric", "settings", "results_site", "profiling",
+               "parallel.mesh", "parallel.scm_device", "parallel.scm_grid",
+               "parallel.distributed", "parallel.build"):
     assert "grm_tpu_torch." + module in names, module
 
 # The host modules run with pandas, h5py and JAX blocked.
@@ -113,4 +126,4 @@ def test_port_imports_no_jax_and_requires_cuda():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 45  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 47  # every module was imported

@@ -199,8 +199,8 @@ def test_learn_cart_multiclass_matches_jax(tmp_path, criterion, engine):
 def test_exact_engine_and_mesh_raise_instead_of_switching(tmp_path,
                                                           monkeypatch):
     """No engine quietly runs another: the exact engine serves its own
-    frontiers (and gives the host engine's model), and a mesh still raises
-    until the multi-device engines are ported."""
+    frontiers (and gives the host engine's model), and a mesh of another
+    device type than the run's raises instead of moving the run there."""
     from grm_tpu_torch.parallel import cart_exact, cart_forest
 
     dense, labels = _tied_dense(2)
@@ -219,13 +219,19 @@ def test_exact_engine_and_mesh_raise_instead_of_switching(tmp_path,
     assert got == _cart_fingerprint(learn_CART(dataset_file=path,
                                                engine="host", device="cpu",
                                                **CV))
+    import torch
+
+    from grm_tpu_torch.parallel.mesh import make_mesh
+
+    cuda = make_mesh(2, devices=[torch.device("cuda", 0)] * 2)
     for engine in ("host", "device"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            learn_CART(dataset_file=path, engine=engine, mesh=object(),
+        with pytest.raises(ValueError, match="mesh"):
+            learn_CART(dataset_file=path, engine=engine, mesh=cuda,
                        device="cpu", **CV)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_cart.DecisionTreeClassifier("gini", 3, 2, {0: 1.0, 1: 1.0},
-                                         engine="device", mesh=object())
+    cpu = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    tree = port_cart.DecisionTreeClassifier("gini", 3, 2, {0: 1.0, 1: 1.0},
+                                            engine="device", mesh=cpu)
+    assert tree.mesh == cpu
     with pytest.raises(ValueError):
         learn_CART(dataset_file=path, engine="gpu", device="cpu", **CV)
 

@@ -67,21 +67,29 @@ def test_from_contigs_device_then_train_scm(fasta, genome_batch,
 
 
 def test_mesh_and_host_ingest_raise(fasta):
-    """A device mesh (ROADMAP item 11) raises wherever it is asked for; the
-    host ingest (item 12's first half) is ported and raises no more."""
+    """A mesh of another device type than the dataset's raises wherever it
+    is asked for (the run never moves to it); a mesh of the dataset's own
+    device type shards the matrix, from both ingests."""
+    from grm_tpu_torch.parallel.mesh import MeshSharding, make_mesh
+
     specs, labels = fasta
+    cuda = make_mesh(2, devices=[torch.device("cuda", 0)] * 2)
+    cpu = MeshSharding(make_mesh(2, devices=[torch.device("cpu")] * 2))
     ds = tp.InMemoryDataset.from_contigs_device(specs, labels, 15,
                                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.train_scm(ds, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.InMemoryDataset.from_contigs(specs, labels, 15, sharding=object(),
-                                        device="cpu")
-    host = tp.InMemoryDataset.from_contigs(specs, labels, 15, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tp.InMemoryDataset(host.km, labels, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        host.bit_matrix(sharding=object())
+    with pytest.raises(ValueError, match="not cpu devices"):
+        tp.train_scm(ds, mesh=cuda)
+    assert ds.bit_matrix(sharding=cpu).sharded
+    assert not ds.bit_matrix().sharded
+    host = tp.InMemoryDataset.from_contigs(specs, labels, 15, sharding=cpu,
+                                           device="cpu")
+    with pytest.raises(ValueError, match="not cpu devices"):
+        tp.train_scm(host, mesh=cuda)
+    assert host.bit_matrix().sharded
+    assert tp.InMemoryDataset(host.km, labels, sharding=cpu,
+                              device="cpu").bit_matrix().sharded
+    fresh = tp.InMemoryDataset(host.km, labels, device="cpu")
+    assert fresh.bit_matrix(sharding=cpu).sharded
 
 
 @pytest.mark.parametrize("k,filter_singleton",
