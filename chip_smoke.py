@@ -125,7 +125,15 @@ Phases (any failure exits non-zero and prints no result):
    31, without and with the singleton filter; both ranks' union and matrix
    must equal ``build_presence_matrix`` over the same genomes byte for
    byte, and a genome list that differs between the ranks must fail fast
-   on both. Then the CLI on one card: ``learn scm --engine device
+   on both. Then meshes that span processes (``--mesh-worker``, gloo, each
+   process naming cuda:0), at ``grm_tpu``'s multi-process yardsticks (60
+   genomes x 517 k-mers): two processes x 4 devices run
+   ``scm_cv_grid_sharded``, which must equal ``scm_cv_batch_device`` on the
+   unsharded matrix; four processes x 2 devices run three
+   ``scm_device_step``s on a (2, 4) mesh whose both axes cross processes,
+   which must equal one process's (2, 4) mesh; a rank whose fits differ
+   must fail every rank with the mismatch. Then the CLI on one card:
+   ``learn scm --engine device
    --n-devices 2`` exits 1 with "exceeds the 1 available local device(s)"
    before it loads anything, and ``--n-devices 1`` over a 342 x 20,000
    artifact in memory (by its ``memory://`` path) places nothing on a mesh
@@ -151,7 +159,18 @@ Phases (any failure exits non-zero and prints no result):
    mesh of cuda:0, each loading its own sharded matrix (each shard's
    columns split straight onto its device, two ``deinterleave_u64``
    launches a shard), each giving its unsharded path's fingerprint and
-   printing its launches beside the unsharded ones. The resident and
+   printing its launches beside the unsharded ones. Then the same four
+   paths on a (1, 4) mesh that spans two processes (``device-procs``,
+   ``device-argmax-procs``, ``tree-device-procs``,
+   ``tree-device-argmax-procs``): the artifact written once into a
+   temporary directory, two ``--mesh-worker`` processes each naming cuda:0
+   twice, each mapping the artifact's files, loading only its own shards
+   once (``load-procs``: the ``load`` stage, its peak device bytes under
+   its shards plus three chunks) and learning the four paths; every
+   rank's fingerprint must equal the unsharded path's, each path must
+   launch its kernels, and the ranks' launch sums must equal the
+   ``*-sharded`` paths' counts; each rank's process start, load, walls
+   and collectives (count and host seconds) are printed. The resident and
    sharded paths load the artifact
    on their own first (the ``load`` stage, timed with the port's
    StageTimer: ``ds.bit_matrix``, the u64 bytes to the device matrix
@@ -242,7 +261,9 @@ The last lines of standard output are the kernels' JSON line, the card's
 ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. In the kernels' line, ``launches`` is
 the sum of the paths' counts and ``launches_by_path`` gives each path's
-own (``build-distributed``'s are its two processes' sums). Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
+own (``build-distributed``'s and the ``*-procs`` paths' are their
+processes' sums; ``load-procs`` holds the process-spanning mesh's loads).
+Kernel libraries are built into ``grm_tpu_torch/_kernels/``.
 """
 
 import argparse
@@ -390,6 +411,18 @@ PATH_KERNELS = {
 SHARDED_PATHS = ("device", "device-argmax", "tree-device",
                  "tree-device-argmax")
 PATH_KERNELS.update({p + "-sharded": PATH_KERNELS[p] for p in SHARDED_PATHS})
+# The same four paths on a (1, MESH_CARDS) mesh that spans PROCS processes
+# (--mesh-worker), each process loading its shards once ("load-procs", the
+# processes' deinterleave_u64 launches), then learning the four paths.
+PROCS = 2
+PATH_KERNELS.update({p + "-procs": tuple(k for k in PATH_KERNELS[p]
+                                         if k != "deinterleave_u64")
+                     for p in SHARDED_PATHS})
+PATH_KERNELS["load-procs"] = ("deinterleave_u64",)
+# grm_tpu's multi-process yardsticks (tests/test_distributed_build.py):
+# genomes x k-mers, the CV grid's p values and folds, the rule budget.
+YARDSTICK = (60, 517)
+YARDSTICK_PS, YARDSTICK_FOLDS, YARDSTICK_RULES = (0.5, 2.0), 2, 4
 # The CUDA function each wrapper launches, as torch.profiler names it.
 KERNEL_FUNCTIONS = {
     "popcount_colsum": "colsum_kernel",
@@ -3511,6 +3544,415 @@ def run_build_distributed(specs, ingest, paths, card):
                                              len(specs)))
 
 
+def save_artifact(mem, directory):
+    """Write an in-memory artifact into ``directory``: each dataset an
+    ``.npy`` file, the groups' layout and attrs a pickle, so that other
+    processes map it (:func:`load_artifact`) instead of holding a copy."""
+    import pickle
+
+    from grm_tpu_torch.dataset.artifact import MemoryDataset
+
+    layout = [("", "group", None, dict(mem.attrs))]
+
+    def walk(group, prefix):
+        for name, node in group.items():
+            path = prefix + name
+            if isinstance(node, MemoryDataset):
+                fname = "%d.npy" % len(layout)
+                np.save(os.path.join(directory, fname), node.data)
+                layout.append((path, "dataset", fname, dict(node.attrs)))
+            else:
+                layout.append((path, "group", None, dict(node.attrs)))
+                walk(node, path + "/")
+
+    walk(mem, "")
+    with open(os.path.join(directory, "layout.pkl"), "wb") as f:
+        pickle.dump(layout, f)
+
+
+def load_artifact(directory):
+    """The artifact :func:`save_artifact` wrote, its datasets memory-mapped:
+    a process reads only the pages it touches (of the k-mer matrix, the
+    columns of its own shards)."""
+    import pickle
+
+    from grm_tpu_torch.dataset.artifact import MemoryArtifact, MemoryDataset
+
+    with open(os.path.join(directory, "layout.pkl"), "rb") as f:
+        layout = pickle.load(f)  # written by save_artifact in this program
+    mem = MemoryArtifact()
+    for path, kind, fname, attrs in layout:
+        if not path:
+            mem.attrs.update(attrs)
+            continue
+        *parents, name = path.split("/")
+        group = mem
+        for part in parents:
+            group = group[part]
+        if kind == "group":
+            node = group.create_group(name)
+        else:
+            node = group[name] = MemoryDataset(np.load(
+                os.path.join(directory, fname), mmap_mode="r"))
+        node.attrs.update(attrs)
+    return mem
+
+
+def yardstick_inputs(seed):
+    """grm_tpu's multi-process yardsticks' data: YARDSTICK genomes x
+    k-mers at 40% density, random labels, the (model type, p, fold) CV fits
+    (``tests/helpers_scm.make_cv_fits``: folds by index modulo, disjunction
+    fits with their train masks swapped) and the full masks of the labels.
+    Returns (packed (W, K) uint32, fits, pos mask, neg mask)."""
+    from grm_tpu_torch.parallel.scm_device import build_packed_mask
+    from grm_tpu_torch.utils import pack_binary_bytes_to_ints
+
+    n, k = YARDSTICK
+    rng = np.random.RandomState(seed)
+    dense = (rng.rand(n, k) > 0.6).astype(np.uint8)
+    y = (rng.rand(n) > 0.5).astype(np.uint8)
+    packed = pack_binary_bytes_to_ints(dense, 32)
+    w = packed.shape[0]
+    mask = lambda rows: build_packed_mask(rows, n, w)
+    idx = np.arange(n)
+    fits = []
+    for model_type in ("conjunction", "disjunction"):
+        for p in YARDSTICK_PS:
+            for fold in range(YARDSTICK_FOLDS):
+                te = idx[idx % YARDSTICK_FOLDS == fold]
+                tr = idx[idx % YARDSTICK_FOLDS != fold]
+                pos, neg = tr[y[tr] == 1], tr[y[tr] == 0]
+                if model_type == "disjunction":
+                    pos, neg = neg, pos
+                fits.append({"pos_mask": mask(pos), "neg_mask": mask(neg),
+                             "test_pos_mask": mask(te[y[te] == 1]),
+                             "test_neg_mask": mask(te[y[te] == 0]),
+                             "p": p, "model_type": model_type})
+    return packed, fits, mask(idx[y == 1]), mask(idx[y == 0])
+
+
+def _yardstick_steps(matrix, pos, neg, k):
+    """Three scm_device_steps (fewer where no negative is left): (rule,
+    utility, negatives left) each."""
+    from grm_tpu_torch.parallel.mesh import scm_device_step
+
+    steps = []
+    for _ in range(3):
+        best, util, pos, neg, n_neg = scm_device_step(matrix, pos, neg, 1.0,
+                                                      k)
+        steps.append([int(best), float(util), int(n_neg)])
+        if steps[-1][2] == 0:
+            break
+    return steps
+
+
+def _job_grid(spec, mesh, device):
+    """Phase 4: scm_cv_grid_sharded on the yardstick over the mesh (rank
+    1's p values doubled where the spec asks for a mismatch)."""
+    from grm_tpu_torch.parallel.scm_grid import scm_cv_grid_sharded
+
+    packed, fits, _, _ = yardstick_inputs(spec["seed"])
+    if spec.get("mismatch") and spec["rank"] == 1:
+        fits = [dict(f, p=2 * f["p"]) for f in fits]
+    rules, n_rules, risks = scm_cv_grid_sharded(packed, fits, YARDSTICK[1],
+                                                YARDSTICK_RULES, mesh)
+    return {"rules": rules.tolist(), "n_rules": n_rules.tolist(),
+            "risks": risks.tolist()}
+
+
+def _job_step(spec, mesh, device):
+    """Phase 4: three scm_device_steps on the yardstick over the mesh."""
+    from grm_tpu_torch.parallel.mesh import shard_bit_matrix
+
+    packed, _, pos, neg = yardstick_inputs(spec["seed"])
+    matrix, k = shard_bit_matrix(packed, mesh)
+    return {"steps": _yardstick_steps(matrix, pos, neg, k)}
+
+
+def _job_paths(spec, mesh, device):
+    """Phase 5: the process's shards of the mapped artifact loaded once
+    (the ``load`` stage, its peak device bytes against its shards plus
+    three staging chunks) and once more from the touched mapping, then the
+    four learn paths over the mesh, each with its fingerprint, wall,
+    launches and collectives counted from 0, and run again."""
+    import torch
+
+    from grm_tpu_torch.dataset import GrmDataset
+    from grm_tpu_torch.ops import _build
+    from grm_tpu_torch.parallel import distributed
+    from grm_tpu_torch.parallel.mesh import MeshSharding
+    from grm_tpu_torch.profiling import StageTimer
+
+    def counted():
+        return ({k: v for k, v in _build.launches.items() if v},
+                dict(distributed.collectives))
+
+    mem = load_artifact(spec["artifact"])
+    ds = GrmDataset(mem, device=device)
+    n_words = -(-ds.genome_count // 32)
+    lk = -(-ds.kmer_count // mesh.shape["cols"])
+    held = sum(mesh.is_local(0, c) for c in range(mesh.shape["cols"]))
+    timer = StageTimer()
+    _build.reset_launches()
+    distributed.reset_collectives()
+    with timer.stage("load"):
+        _, peak, bound = load_peak(
+            lambda: ds.bit_matrix(sharding=MeshSharding(mesh)), n_words,
+            held * lk)
+    launches, colls = counted()
+    # The same load again from the same mapping, whose pages this process
+    # has touched now: what the first load paid to read the file.
+    t0 = time.time()
+    GrmDataset(mem, device=device).bit_matrix(sharding=MeshSharding(mesh))
+    torch.cuda.synchronize()
+    out = {"load": {"seconds": timer.stages["load"], "peak": peak,
+                    "bound": bound, "launches": launches,
+                    "collectives": colls, "again": time.time() - t0},
+           "paths": {}}
+
+    def run(path):
+        t0 = time.time()
+        if path.startswith("tree-"):
+            fp = tree_fingerprint(learn_tree(ds, path[len("tree-"):], device,
+                                             list(CART_CRITERIA), 10, mesh))
+        else:
+            fp = fingerprint(learn(ds, path, device, mesh))
+        torch.cuda.synchronize()
+        return fp, time.time() - t0
+
+    for path in SHARDED_PATHS:
+        _build.reset_launches()
+        distributed.reset_collectives()
+        fp, wall = run(path)
+        launches, colls = counted()
+        # Once more in the warm process: the first run of a path also
+        # pays this process's first calls of its kernels and operators.
+        again, wall_again = run(path)
+        if again != fp:
+            raise AssertionError("%s: the second run learned another model"
+                                 % path)
+        out["paths"][path] = {"wall": wall, "again": wall_again,
+                              "fingerprint": fp, "launches": launches,
+                              "collectives": colls}
+    return out
+
+
+MESH_JOBS = {"grid": _job_grid, "step": _job_step, "paths": _job_paths}
+
+
+def mesh_worker(spec_path):
+    """One process of a mesh that spans processes (``--mesh-worker``):
+    joins the gloo group through the file store ``spec["store"]``, makes a
+    mesh of ``spec["rows"]`` rows over every process's
+    ``spec["local_devices"]`` names of cuda:0, runs the job
+    ``spec["job"]`` on it (:data:`MESH_JOBS`) and prints one JSON line: the
+    job's outputs and the seconds from the process's spawn to its joining
+    the group. A failure exits 3 after ``GRM_FAULT:`` and its message on
+    standard error."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from grm_tpu_torch.parallel.distributed import initialize
+    from grm_tpu_torch.parallel.mesh import make_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    initialize(spec["store"], spec["world"], spec["rank"],
+               timeout=spec["timeout"])
+    out = {"rank": spec["rank"], "joined_s": time.time() - spec["spawned"]}
+    device = torch.device(spec["device"])
+    try:
+        mesh = make_mesh(None, row_devices=spec["rows"],
+                         devices=[device] * spec["local_devices"])
+        out.update(MESH_JOBS[spec["job"]](spec, mesh, device))
+    except Exception as e:  # a faulted worker must not wait on its peers
+        sys.stderr.write("GRM_FAULT: %s: %s\n" % (type(e).__name__, e))
+        sys.stderr.flush()
+        os._exit(3)
+    print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_workers(tmp, world, local_devices, rows, job, device, timeout,
+                     **extra):
+    """``world`` ``--mesh-worker`` processes over a file store in ``tmp``,
+    on a mesh of ``rows`` rows, each naming ``device`` ``local_devices``
+    times, running ``job``. Returns ([(returncode, JSON out or None,
+    stderr)] per rank, the wall from the first spawn to the last exit);
+    kills them all past ``timeout`` + 120 seconds."""
+    store = tempfile.mkdtemp(dir=tmp, prefix="mesh_")
+    procs = []
+    t0 = time.time()
+    for rank in range(world):
+        spec = os.path.join(store, "spec%d.json" % rank)
+        with open(spec, "w") as f:
+            json.dump(dict(extra, rank=rank, world=world, store="file://"
+                           + os.path.join(store, "gloo"), timeout=timeout,
+                           rows=rows, local_devices=local_devices, job=job,
+                           device=str(device), spawned=time.time()), f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             spec], stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    results = []
+    deadline = time.time() + timeout + 120
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=max(1.0, deadline - time.time()))
+            lines = [l for l in so.decode().splitlines() if l.startswith("{")]
+            results.append((p.returncode, json.loads(lines[-1]) if lines
+                            else None, se.decode()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return results, time.time() - t0
+
+
+def _ok(results, what):
+    for rank, (rc, out, err) in enumerate(results):
+        if rc != 0 or out is None:
+            raise AssertionError("%s: worker %d exited %s: %s"
+                                 % (what, rank, rc, err[-2000:]))
+    return [out for _, out, _ in results]
+
+
+def check_mesh_procs_small(device, seed):
+    """Phase 4, meshes that span processes on the card (gloo, every
+    process naming cuda:0): grm_tpu's two yardsticks at their size
+    (YARDSTICK). Two processes x 4 devices run ``scm_cv_grid_sharded``,
+    which must equal the port's ``scm_cv_batch_device`` on the unsharded
+    matrix (rules and rule counts exactly, risks to 1e-6); four processes
+    x 2 devices run three ``scm_device_step``s on a (2, 4) mesh, whose both
+    axes cross processes, which must equal one process's (2, 4) mesh; then
+    a rank whose fits differ must fail every rank with the mismatch.
+    Returns summary lines."""
+    from grm_tpu_torch.ops.popcount import masks_to_tensor
+    from grm_tpu_torch.parallel.mesh import shard_bit_matrix
+    from grm_tpu_torch.parallel.scm_device import scm_cv_batch_device
+
+    packed, fits, pos, neg = yardstick_inputs(seed)
+    rules, n_rules, risks = scm_cv_batch_device(
+        masks_to_tensor(packed, device), fits, YARDSTICK[1], YARDSTICK_RULES)
+    matrix, k = shard_bit_matrix(packed, card_mesh(device, 8, rows=2))
+    want_steps = _yardstick_steps(matrix, pos, neg, k)
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        results, wall = run_mesh_workers(tmp, 2, 4, 1, "grid", device, 120,
+                                         seed=seed)
+        for rank, got in enumerate(_ok(results, "the yardstick grid")):
+            if not (np.array_equal(got["rules"], rules)
+                    and np.array_equal(got["n_rules"], n_rules)
+                    and np.allclose(got["risks"], risks, rtol=0,
+                                    atol=1e-6)):
+                raise AssertionError("rank %d's scm_cv_grid_sharded != "
+                                     "scm_cv_batch_device:\n%s\n%s"
+                                     % (rank, got, rules.tolist()))
+        out.append("2 processes x 4 of %s, %dx%d: scm_cv_grid_sharded == "
+                   "scm_cv_batch_device on both ranks (%d fits, rules "
+                   "%s...) in %.1f s with the processes' start"
+                   % ((device,) + YARDSTICK + (len(fits), rules[0].tolist(),
+                                               wall)))
+        results, wall = run_mesh_workers(tmp, 4, 2, 2, "step", device, 120,
+                                         seed=seed)
+        for rank, got in enumerate(_ok(results, "the yardstick steps")):
+            if got["steps"] != want_steps:
+                raise AssertionError("rank %d's scm_device_steps on (2, 4) "
+                                     "%s != one process's %s"
+                                     % (rank, got["steps"], want_steps))
+        out.append("4 processes x 2 of %s on (2, 4), both axes across "
+                   "processes: scm_device_step x %d == one process's (2, 4) "
+                   "mesh on every rank (%s) in %.1f s"
+                   % (device, len(want_steps), want_steps, wall))
+        results, wall = run_mesh_workers(tmp, 2, 4, 1, "grid", device, 60,
+                                         seed=seed, mismatch=True)
+        for rank, (rc, _, err) in enumerate(results):
+            if rc != 3 or "input mismatch" not in err:
+                raise AssertionError("rank %d of a mismatched grid exited "
+                                     "%s: %s" % (rank, rc, err[-2000:]))
+        out.append("a rank with other fits: every rank failed with the "
+                   "mismatch in %.1f s" % wall)
+    return out
+
+
+def run_mesh_procs(mem, device, fingerprints, walls, paths, smi):
+    """Phase 5, the ``*-procs`` paths: the artifact written once into a
+    temporary directory (set-up), then PROCS ``--mesh-worker`` processes on
+    one (1, MESH_CARDS) mesh of ``device`` (cuda:0 on the card), each
+    mapping the artifact, loading
+    its own shards once and learning the four paths (:func:`_job_paths`).
+    Every rank's fingerprints must equal the unsharded paths' of this
+    call; each path must launch its kernels, and the ranks' launch sums
+    must equal the ``*-sharded`` paths' counts of this call. The launches,
+    summed over the ranks, go into ``paths``."""
+    from grm_tpu_torch.ops import _build
+
+    tmp = tempfile.mkdtemp(prefix="grm_procs_")
+    try:
+        t0 = time.time()
+        save_artifact(mem, tmp)
+        t_save = time.time() - t0
+        results, wall = run_mesh_workers(tmp, PROCS, MESH_CARDS // PROCS, 1,
+                                         "paths", device, 600, artifact=tmp)
+        ranks = _ok(results, "the *-procs paths")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("    *-procs (%s): artifact written for mapping in %.2f s (set-up); "
+        "%d processes x %d of %s in %.1f s from the first spawn to the last "
+        "exit" % (smi, t_save, PROCS, MESH_CARDS // PROCS, device, wall))
+    for r in ranks:
+        load = r["load"]
+        log("    rank %d (%s): process start to the group %.2f s; load %.3f "
+            "s (again from the touched mapping: %.3f s), peak %d bytes on "
+            "the card (its shards + 3 chunks: %d), launches %s, collectives "
+            "%d (%.3f s)" % (r["rank"], smi, r["joined_s"], load["seconds"],
+                             load["again"], load["peak"], load["bound"],
+                             load["launches"], load["collectives"]["count"],
+                             load["collectives"]["seconds"]))
+    paths["load-procs"] = {k: sum(r["load"]["launches"].get(k, 0)
+                                  for r in ranks) for k in _build.launches}
+    if paths["load-procs"]["deinterleave_u64"] != \
+            paths["device-sharded"]["deinterleave_u64"]:
+        raise AssertionError("the processes' loads launched %d "
+                             "deinterleave_u64, a sharded load %d"
+                             % (paths["load-procs"]["deinterleave_u64"],
+                                paths["device-sharded"]["deinterleave_u64"]))
+    for path in SHARDED_PATHS:
+        want = json.loads(json.dumps(fingerprints[path]))
+        for r in ranks:
+            if r["paths"][path]["fingerprint"] != want:
+                raise AssertionError("%s-procs, rank %d learned another "
+                                     "model than %r:\n%s\n%s"
+                                     % (path, r["rank"], path,
+                                        r["paths"][path]["fingerprint"],
+                                        want))
+        launches = {k: sum(r["paths"][path]["launches"].get(k, 0)
+                           for r in ranks) for k in _build.launches}
+        paths[path + "-procs"] = launches
+        sharded = paths[path + "-sharded"]
+        pairs = {k: "%d / %d" % (launches[k], sharded[k])
+                 for k in PATH_KERNELS[path + "-procs"]}
+        runs = [r["paths"][path] for r in ranks]
+        log("    %s-procs (%s): fingerprint == %r's on every rank; walls a "
+            "rank %s s (again: %s) against %.2f s sharded in one process; "
+            "launches, ranks' sum / %s-sharded: %s; collectives a rank %s"
+            % (path, smi, path, ["%.2f" % x["wall"] for x in runs],
+               ["%.2f" % x["again"] for x in runs], walls[path + "-sharded"],
+               path, pairs, ["%d (%.3f s)" % (x["collectives"]["count"],
+                                              x["collectives"]["seconds"])
+                             for x in runs]))
+        missing = [k for k in PATH_KERNELS[path + "-procs"]
+                   if launches[k] == 0]
+        if missing:
+            raise AssertionError("%s-procs launched no %s" % (path, missing))
+        if any(launches[k] != sharded[k]
+               for k in PATH_KERNELS[path + "-procs"]):
+            raise AssertionError("%s-procs: the ranks' launches %s != %s-"
+                                 "sharded's" % (path, pairs, path))
+
+
 def check_cli_mesh(device, seed):
     """The CLI's mesh on the one-card machine: ``learn scm --engine device
     --n-devices 2`` exits 1 with grm_tpu's message before it loads
@@ -3778,6 +4220,10 @@ def run(seed):
         "for array and attr for attr; count_fasta == cpu; %s; in %.1f s"
         % (SMALL_INGEST + (device, line, time.time() - t0)))
     log("    multi-process build: %s" % check_distributed_small(device, seed))
+    t0 = time.time()
+    for line in check_mesh_procs_small(device, seed):
+        log("    mesh across processes: %s" % line)
+    log("    meshes across processes checked in %.1f s" % (time.time() - t0))
     log("    CLI on one card: %s" % check_cli_mesh(device, seed))
 
     # 5. the main paths at full scale
@@ -3993,6 +4439,9 @@ def run(seed):
         missing = [k for k in PATH_KERNELS[path] if paths[path][k] == 0]
         if missing:
             raise AssertionError("path %r launched no %s" % (path, missing))
+    # The resident paths once more, on a mesh that spans processes.
+    run_mesh_procs(mem, torch.device("cuda", 0), fingerprints, walls, paths,
+                   smi)
     if not frontiers:
         raise AssertionError("the CART engines launched no frontier")
     try:  # after the learn paths, on the reports of two of them
@@ -4104,9 +4553,13 @@ def main(argv=None):
                         help="seed of the synthetic artifacts")
     parser.add_argument("--build-worker", metavar="SPEC",
                         help=argparse.SUPPRESS)  # one process of the build
+    parser.add_argument("--mesh-worker", metavar="SPEC",
+                        help=argparse.SUPPRESS)  # one process of a mesh
     args = parser.parse_args(argv)
     if args.build_worker:
         return build_worker(args.build_worker)
+    if args.mesh_worker:
+        return mesh_worker(args.mesh_worker)
     import torch
 
     if not torch.cuda.is_available():

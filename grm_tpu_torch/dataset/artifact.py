@@ -302,23 +302,28 @@ class GrmDataset:
         chunk.
 
         ``sharding`` (a :class:`~grm_tpu_torch.parallel.mesh.MeshSharding`)
-        places the matrix on a mesh, each column shard split straight onto
-        its device; a sharded matrix never streams. Without ``sharding`` the
-        matrix is unsharded. One matrix is kept, that of the sharding asked
-        for last: asking for another frees it and loads anew, so that a
-        sharded and an unsharded copy never lie on the card side by side.
+        places the matrix on a mesh, each of this process's shards split
+        straight onto its device from the artifact's words of that shard
+        alone (the columns of another process are never read); a sharded
+        matrix never streams. Without ``sharding`` the matrix is unsharded.
+        One matrix is kept, that of the sharding asked for last: asking for
+        another frees it and loads anew, so that a sharded and an unsharded
+        copy never lie on the card side by side.
         """
         bm = self._bit_matrix
         if bm is None or bm.sharding != sharding:
             self._bit_matrix = None  # free the old matrix before the new one
             del bm
+            if sharding is not None:
+                with self.open() as f:
+                    self._bit_matrix = BitMatrix.from_u64(
+                        f["kmer_matrix"], self.genome_count,
+                        sharding=sharding)
+                return self._bit_matrix
             m64 = self.kmer_matrix_u64()
             device_bytes = m64.shape[0] * 2 * m64.shape[1] * 4
             budget = self._device_memory_budget()
-            if sharding is not None:
-                bm = BitMatrix.from_u64(m64, self.genome_count,
-                                        sharding=sharding)
-            elif budget is not None and device_bytes > 0.6 * budget:
+            if budget is not None and device_bytes > 0.6 * budget:
                 bm = StreamingBitMatrix.from_u64(
                     m64, self.genome_count, device=self.device)
             else:

@@ -44,7 +44,9 @@ __all__ = [
     "popcount_colsum_pairs",
     "popcount_colsum_pairs_plain",
     "popcount_rows",
+    "masked_popcount_colsum",
     "masks_to_tensor",
+    "u32_matrix_to_u64",
     "u64_matrix_to_u32",
     "deinterleave_u64",
     "deinterleave_u64_plain",
@@ -77,6 +79,17 @@ def u64_matrix_to_u32(m64):
     out = np.empty((m64.shape[0] * 2, m64.shape[1]), dtype=np.uint32)
     split_u64_into(out, m64, 0, m64.shape[1])
     return out
+
+
+def u32_matrix_to_u64(m32):
+    """Inverse of :func:`u64_matrix_to_u32` on the host: word rows 2w and
+    2w + 1 become the high and low halves of uint64 row w; an odd row count
+    is padded with a zero row."""
+    m32 = np.ascontiguousarray(m32, dtype=np.uint32)
+    if m32.shape[0] % 2:
+        m32 = np.concatenate([m32, np.zeros((1,) + m32.shape[1:], np.uint32)])
+    return ((m32[0::2].astype(np.uint64) << np.uint64(32))
+            | m32[1::2].astype(np.uint64))
 
 
 def deinterleave_u64_plain(raw, n_words):
@@ -293,6 +306,24 @@ def popcount_colsum(matrix, masks):
     return out
 
 
+def masked_popcount_colsum(matrix, masks, device=None):
+    """``grm_tpu``'s entry to the sweep: ``matrix`` (W, K) and ``masks``
+    (C, W), or one (W,) mask taken as a row, each a uint32 numpy array or
+    an int32 tensor of packed words; returns (C, K) int32 counts
+    (:func:`popcount_colsum`: the kernel on the card, the plain version on
+    the CPU) on the matrix tensor's device, else on ``device`` (default
+    ``"cuda"``), where numpy inputs are uploaded."""
+    dev = (matrix.device if isinstance(matrix, torch.Tensor)
+           else resolve_device(device))
+    matrix, masks = (
+        x.to(dev) if isinstance(x, torch.Tensor)
+        else masks_to_tensor(np.asarray(x, np.uint32), dev)
+        for x in (matrix, masks))
+    if masks.dim() == 1:
+        masks = masks[None, :]
+    return popcount_colsum(matrix.contiguous(), masks.contiguous())
+
+
 def popcount_colsum_pairs_plain(matrix, masks, offsets, width):
     """Plain PyTorch version of :func:`popcount_colsum_pairs`."""
     k = matrix.shape[1]
@@ -415,9 +446,10 @@ class BitMatrix:
     def from_u64(cls, m64, n_rows, device=None, sharding=None):
         """From the on-disk uint64 layout, split on the device
         (:func:`split_u64`); word rows past the last genome's (all padding
-        bits) are dropped. With ``sharding`` each column shard is split
-        straight onto its own device."""
-        m64 = np.asarray(m64)
+        bits) are dropped. With ``sharding`` each of this process's shards
+        is split straight onto its own device, and ``m64`` may be anything
+        sliced ``m64[rows, cols]`` (a memory map, an h5py dataset): only
+        those shards' words are read."""
         n_words = min(-(-int(n_rows) // 32), 2 * m64.shape[0])
         if sharding is None:
             return cls(split_u64(m64, n_words, device), n_rows)

@@ -17,7 +17,9 @@ A matrix whose columns are sharded over a mesh takes the same path: each
 column shard runs ``cart_sweep`` on its own device, a resident matrix being
 one shard, and the per-shard winners come to the first device, where per
 node the first shard at the minimum wins
-(:func:`cart_frontier_splits_sharded` is ``grm_tpu``'s name for it).
+(:func:`cart_frontier_splits_sharded` is ``grm_tpu``'s name for it). On a
+mesh that spans processes each process sweeps its own shards and one
+gather a call folds every process's winners by the same rule.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 
 from ..ops.cart_sweep import cart_frontier_scores
 from ..ops.popcount import masks_to_tensor
-from .mesh import MeshSharding, ShardedMatrix, column_shards, shard_limit
+from .distributed import check_agreement
+from .mesh import (MeshSharding, ShardedMatrix, column_shards,
+                   combine_winners, shard_limit, spans_processes)
 from .scm_device import build_packed_mask
 
 __all__ = ["cart_best_split_device", "cart_frontier_splits_device",
@@ -79,7 +83,10 @@ def cart_frontier_splits_device(bit_matrix, node_example_sets, altered_priors,
     if excl is not None:
         excl_np = np.zeros(data.shape[1], np.uint8)
         excl_np[:len(excl)] = np.asarray(excl, bool)
-    best_col = best = None
+    if spans_processes(data):
+        check_agreement("the frontier, its criterion and the blacklist",
+                        *args, crit, excl_np, bit_matrix.n_columns)
+    best_col = best = first = None
     for lo, shard in column_shards(data):
         limit = shard_limit(bit_matrix.n_columns, lo, shard)
         if lo and limit == 0:
@@ -90,14 +97,19 @@ def cart_frontier_splits_device(bit_matrix, node_example_sets, altered_priors,
         cols, scores = cart_frontier_scores(
             shard, *[a.to(dev) for a in args], crit, limit, block=block,
             excl=shard_excl)
-        cols = cols.to(bit_matrix.device) + lo
+        cols = cols.to(bit_matrix.device, torch.int64) + lo
         scores = scores.to(bit_matrix.device)
         if best is None:
-            best_col, best = cols, scores
+            best_col, best, first = cols, scores, lo
             continue
         take = scores < best
         best_col = torch.where(take, cols, best_col)
         best = torch.where(take, scores, best)
+    if best is None:  # every local shard is padding: nothing to offer
+        n = len(node_example_sets)
+        best = torch.full((n,), torch.inf, device=bit_matrix.device)
+        best_col = torch.zeros(n, dtype=torch.int64, device=bit_matrix.device)
+    best, best_col = combine_winners(data, first, best, best_col, np.less)
     return _split_list(best_col, best)
 
 

@@ -58,7 +58,12 @@ A matrix sharded over a mesh (``mesh=``, or a matrix loaded sharded) is
 walked the same way, its column shards taking the chunks' place: each
 shard's passes run on its own device with the frontier's inputs copied
 there, and their results come to the mesh's first device for the same
-merges (a shard of padding only is skipped).
+merges (a shard of padding only is skipped). On a mesh that spans
+processes each process walks only its own shards, and the merges span the
+processes: pass 1's minima by a min all-reduce, the tuple tables (their
+columns made global first) by a max and a min all-reduce, the compacted
+columns by a gather, merged node-major and ascending by global column;
+every process then replays the same selection.
 """
 
 from __future__ import annotations
@@ -69,16 +74,19 @@ import torch
 from ..learning.cart import score_candidates_f64
 from ..ops.cart_exact import (
     S_MAX,
+    _table_offsets,
     cart_exact_select,
     cart_exact_tuples,
     decode_keys,
     key_bitmap,
+    lattice_sizes,
     table_rows,
 )
 from ..ops.cart_sweep import NO_COLUMN, cart_frontier_scores
 from ..ops.popcount import StreamingBitMatrix, masks_to_tensor
 from .cart_device import _frontier_masks, _per_node_dicts, sharded_data
-from .mesh import ShardedMatrix
+from .distributed import all_gather_arrays, all_reduce, check_agreement
+from .mesh import ShardedMatrix, spans_processes
 from .scm_device import build_packed_mask
 
 __all__ = ["S_MAX", "cart_frontier_candidates", "resolve_equiv_specs"]
@@ -149,6 +157,7 @@ class _Frontier:
         # The scales pass 1 scores with (ops/cart_sweep._frontier_scores).
         self.scale = (self.priors / self.totals).contiguous()
         self.matrix = self.excl = self.stream = self.shards = None
+        self.spans = False
         if isinstance(bit_matrix, StreamingBitMatrix):
             self.stream = _HostStream.cached(bit_matrix, excl)
             return
@@ -157,6 +166,7 @@ class _Frontier:
         if isinstance(data, ShardedMatrix):
             self.matrix = data
             self.shards = _shard_chunks(data, self.n_kmers, excl)
+            self.spans = spans_processes(data)
             return
         self.matrix = data
         if excl is not None:
@@ -209,15 +219,27 @@ class _Frontier:
             if mode == "gather":
                 lefts.append(left.cpu().numpy().astype(np.int64))
                 occs.append(occ.cpu().numpy().astype(np.int64))
-        node_of = np.concatenate(node_of)
-        order = np.argsort(node_of, kind="stable")  # chunks ascend
+        c = masks.shape[1]
+        node_of = np.concatenate(node_of + [np.zeros(0, np.int64)])
+        cols = np.concatenate(cols + [np.zeros(0, np.int64)])
+        left = np.concatenate(lefts + [np.zeros((c, 0), np.int64)], 1)
+        occ = np.concatenate(occs + [np.zeros(0, np.int64)])
+        if self.spans:  # every process's selections, in process order
+            rows = np.concatenate([node_of[None], cols[None], left,
+                                   occ[None]] if mode == "gather" else
+                                  [node_of[None], cols[None]])
+            rows = np.concatenate(all_gather_arrays(rows.T)).T
+            node_of, cols = rows[0], rows[1]
+            if mode == "gather":
+                left, occ = rows[2:2 + c], rows[2 + c]
+        # Node-major, then ascending by global column (the processes'
+        # shards need not come in column order).
+        order = np.lexsort((cols, node_of))
         starts = np.concatenate(
             [[0], np.cumsum(np.bincount(node_of, minlength=len(idx)))])
         if mode != "gather":
-            return starts, np.concatenate(cols)[order], None, None
-        return (starts, np.concatenate(cols)[order],
-                np.concatenate(lefts, 1)[:, order],
-                np.concatenate(occs)[order])
+            return starts, cols[order], None, None
+        return starts, cols[order], left[:, order], occ[order]
 
 
 def _shard_chunks(matrix, n_kmers, excl):
@@ -291,21 +313,29 @@ def cart_frontier_candidates(bit_matrix, node_example_sets, altered_priors,
     need_equiv = [True] * n if need_equiv is None else list(need_equiv)
     occ_tiebreak = [True] * n if occ_tiebreak is None else list(occ_tiebreak)
     defer_equiv = [False] * n if defer_equiv is None else list(defer_equiv)
-    front = _Frontier(bit_matrix, masks, n_node, priors, totals,
-                      _train_masks(bit_matrix, train_example_idx, w), excl,
+    train = _train_masks(bit_matrix, train_example_idx, w)
+    front = _Frontier(bit_matrix, masks, n_node, priors, totals, train, excl,
                       mesh)
+    if front.spans:
+        check_agreement("the frontier, its criterion, train sets, options "
+                        "and the blacklist", masks, n_node, priors, totals,
+                        train, crit, need_equiv, occ_tiebreak, defer_equiv,
+                        None if excl is None else np.asarray(excl, bool))
 
     # Pass 1: per-node float32 minima, the frontier sweep's own, reduced
-    # over the chunks of a streamed matrix or the shards of a sharded one.
-    gmin = None
+    # over the chunks of a streamed matrix or the shards of a sharded one
+    # (and over the processes of a mesh that spans them).
+    gmin = torch.full((n,), np.inf, device=front.device)
     for _, limit, matrix, chunk_excl in front.chunks():
         dev = matrix.device
         _, g = cart_frontier_scores(
             matrix, front.masks.to(dev), front.n_node.to(dev),
             front.priors.to(dev), front.totals.to(dev), crit, limit,
             excl=chunk_excl)
-        g = g.to(front.device)
-        gmin = g if gmin is None else torch.minimum(gmin, g)
+        gmin = torch.minimum(gmin, g.to(front.device))
+    if front.spans:
+        gmin = torch.from_numpy(all_reduce(gmin.cpu().numpy(), "min")).to(
+            front.device)
     thresh = _thresh_from_gmin(gmin, float(c)).contiguous()
 
     lattice = np.prod(n_node.astype(np.int64) + 1, axis=1)
@@ -328,21 +358,28 @@ def _run_tuple_regime(out, t_idx, front, thresh, n_node, crit, classes,
     masks, train, nn, scale = front.rows(t_idx)
     sel = torch.as_tensor(t_idx, device=front.device)
     th = thresh[sel].contiguous()
-    occ_tab = col_tab = None
+    # Empty tables (no column of any key has passed), laid out as
+    # cart_exact_tuples lays them out.
+    table_off, total = _table_offsets(lattice_sizes(nn))
+    occ_tab = torch.zeros(total, dtype=torch.int64, device=front.device)
+    col_tab = torch.full((total,), NO_COLUMN, dtype=torch.int32,
+                         device=front.device)
     for lo, limit, matrix, excl in front.chunks():
         dev = matrix.device
-        occ, col, table_off = (t.to(front.device) for t in cart_exact_tuples(
+        occ, col, _ = (t.to(front.device) for t in cart_exact_tuples(
             matrix, masks.to(dev), train.to(dev), nn.to(dev), scale.to(dev),
             th.to(dev), crit, limit, excl=excl))
-        if occ_tab is None:
-            occ_tab, col_tab = occ, col
-            continue
         # The chunk's columns made global (the packed occurrence entry holds
         # 0xFFFFFFFF - col in its low word), then merged: the largest
         # occurrence, then the lowest column at it; the lowest column.
         occ_tab = torch.maximum(occ_tab, torch.where(occ != 0, occ - lo, 0))
         col_tab = torch.minimum(col_tab, torch.where(col != NO_COLUMN,
                                                      col + lo, NO_COLUMN))
+    if front.spans:  # the same merges over the processes' tables
+        occ_tab = torch.from_numpy(all_reduce(occ_tab.cpu().numpy(),
+                                              "max")).to(front.device)
+        col_tab = torch.from_numpy(all_reduce(col_tab.cpu().numpy(),
+                                              "min")).to(front.device)
     # One download: the present tuples' (node, key, occmax, column at
     # occmax, lowest column).
     node_of, keys, occs, coccs, canys = torch.stack(

@@ -12,11 +12,23 @@ execution.
 
 Gloo's collectives take no unsigned integers, so arrays travel as their
 bytes (``uint8``), exactly.
+
+A mesh that spans processes (:func:`grm_tpu_torch.parallel.mesh.make_mesh`
+after :func:`initialize`) combines its shards' small results with the
+helpers below: :func:`all_gather_fixed` and :func:`all_gather_arrays`
+(results in rank order), :func:`all_reduce` (sum, max or min) and
+:func:`check_agreement` (a digest of the inputs every rank must share,
+checked before the work that depends on them). A collective whose peer
+died or diverged raises within the group's timeout; none carries on with
+local data. :data:`collectives` counts the collectives this process has
+made and the host seconds they took.
 """
 
 from __future__ import annotations
 
 import datetime
+import hashlib
+import time
 
 import numpy as np
 import torch
@@ -28,12 +40,36 @@ __all__ = [
     "process_index",
     "process_count",
     "all_gather_arrays",
+    "all_gather_fixed",
+    "all_gather_objects",
+    "all_reduce",
+    "check_agreement",
+    "collectives",
+    "reset_collectives",
     "shard_round_robin",
 ]
 
 # Seconds a collective may wait for its peers before it raises: a process
 # that died or diverged surfaces as an error on the others, not as a hang.
 DEFAULT_TIMEOUT = 300.0
+# The torch.distributed collectives this process's helpers made since
+# reset_collectives(), and the host seconds they took (waits included).
+collectives = {"count": 0, "seconds": 0.0}
+
+
+def reset_collectives():
+    collectives.update(count=0, seconds=0.0)
+
+
+def _collective(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a torch.distributed collective, counted in
+    :data:`collectives`."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        collectives["count"] += 1
+        collectives["seconds"] += time.perf_counter() - t0
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
@@ -89,13 +125,88 @@ def all_gather_arrays(array, dtype=None):
 
     n = process_count()
     sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
-    dist.all_gather(sizes, torch.tensor([array.shape[0]], dtype=torch.int64))
+    _collective(dist.all_gather, sizes,
+                torch.tensor([array.shape[0]], dtype=torch.int64))
     sizes = [int(s) for s in sizes]
     pad_shape = (max(sizes),) + array.shape[1:]
     padded = np.zeros(pad_shape, dtype=array.dtype)
     padded[:array.shape[0]] = array
     payload = torch.from_numpy(padded.reshape(-1).view(np.uint8))
     parts = [torch.empty_like(payload) for _ in range(n)]
-    dist.all_gather(parts, payload)
+    _collective(dist.all_gather, parts, payload)
     return [p.numpy().view(array.dtype).reshape(pad_shape)[:size]
             for p, size in zip(parts, sizes)]
+
+
+def all_gather_fixed(array):
+    """Gather an array of one shape and dtype on every process: the list of
+    per-process arrays in process order (the process's own array alone
+    where there is one process)."""
+    array = np.ascontiguousarray(array)
+    if process_count() == 1:
+        return [array]
+    payload = torch.from_numpy(array.reshape(-1).view(np.uint8))
+    parts = [torch.empty_like(payload) for _ in range(process_count())]
+    _collective(dist.all_gather, parts, payload)
+    return [p.numpy().view(array.dtype).reshape(array.shape) for p in parts]
+
+
+def all_gather_objects(obj):
+    """Gather a small picklable object from every process, in process
+    order."""
+    if process_count() == 1:
+        return [obj]
+    out = [None] * process_count()
+    _collective(dist.all_gather_object, out, obj)
+    return out
+
+
+_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+_REDUCIBLE = (np.int32, np.int64, np.float32)
+
+
+def all_reduce(array, op="sum"):
+    """Element-wise ``op`` ("sum", "max" or "min") of an int32, int64 or
+    float32 array over the processes; returns a new array (a copy of the
+    input where there is one process). Integer sums are exact, and so are
+    the extrema."""
+    array = np.array(array, copy=True)
+    if array.dtype.type not in _REDUCIBLE:
+        raise ValueError("all_reduce takes int32, int64 or float32, not %s"
+                         % array.dtype)
+    if process_count() > 1:
+        _collective(dist.all_reduce, torch.from_numpy(array),
+                    op=getattr(dist.ReduceOp, _OPS[op]))
+    return array
+
+
+def _digest(items):
+    h = hashlib.sha256()
+    for item in items:
+        if isinstance(item, (np.ndarray, torch.Tensor)):
+            a = np.ascontiguousarray(item.cpu().numpy() if isinstance(
+                item, torch.Tensor) else item)
+            h.update(("%s%s" % (a.dtype.str, a.shape)).encode())
+            h.update(a.tobytes())
+        else:
+            h.update(repr(item).encode())
+        h.update(b"\0")
+    return np.frombuffer(h.digest(), np.uint8).copy()
+
+
+def check_agreement(what, *items):
+    """Raise on every process, naming the ones that differ, unless every
+    process passed the same ``items`` (arrays, tensors or values with a
+    stable ``repr``): the inputs of a run that every process must share
+    (``what`` names them). One gather of a 32-byte digest; nothing where
+    there is one process."""
+    if process_count() == 1:
+        return
+    digests = all_gather_fixed(_digest(items))
+    bad = [i for i, d in enumerate(digests)
+           if not np.array_equal(d, digests[0])]
+    if bad:
+        raise ValueError(
+            "Distributed input mismatch: process(es) %s disagree with "
+            "process 0 on %s (this is process %d). Every process must pass "
+            "the same inputs." % (bad, what, process_index()))

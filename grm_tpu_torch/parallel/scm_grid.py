@@ -15,7 +15,11 @@ kernel's column limit, the per-shard winners come to the first device, and
 per fit and half the first shard at the maximum wins (shards ascend by
 column, so the lowest global column wins ties, presence beating absence as
 unsharded); the winning column comes from its owner shard.
-:func:`scm_cv_grid_sharded` is ``grm_tpu``'s name for it.
+:func:`scm_cv_grid_sharded` is ``grm_tpu``'s name for it. On a mesh that
+spans processes each process sweeps its own shards, one gather a sweep
+brings every process's winners to all of them, and they fold by the same
+rule; every process then holds the same fit state, checked first
+(``check_agreement``) to start from the same fits.
 
 Selection semantics match the JAX engine exactly under exact float32
 arithmetic: pure argmax utility (no isclose tie sets), ties to the lowest
@@ -31,8 +35,9 @@ import torch
 
 from ..ops.popcount import masks_to_tensor, popcount_rows
 from ..ops.scm_sweep import scm_utility_argmax
+from .distributed import check_agreement
 from .mesh import (MeshSharding, ShardedMatrix, _columns, column_shards,
-                   shard_limit)
+                   combine_winners, shard_limit, spans_processes)
 
 __all__ = ["scm_cv_grid_device", "scm_cv_grid_sharded"]
 
@@ -70,12 +75,14 @@ def _apply_rule(state, bits, use_abs, best_col, step_i, n_kmers):
 
 
 def _sweep(matrix, args, n_kmers, excl):
-    """``scm_utility_argmax`` on each column shard of ``matrix`` (a resident
-    matrix is one), combined on its (first) device: per fit and half the
-    first shard at the maximum, its column made global in int64. ``excl``:
-    one (2, width) mask or None a shard. A later shard of padding only is
-    skipped: its winners would be -inf."""
-    best = None
+    """``scm_utility_argmax`` on each local column shard of ``matrix`` (a
+    resident matrix is one), combined on its (first) device: per fit and
+    half the first shard at the maximum, its column made global in int64;
+    then, on a mesh that spans processes, the processes' winners the same
+    way (:func:`~grm_tpu_torch.parallel.mesh.combine_winners`). ``excl``:
+    one (2, width) mask or None a local shard. A later shard of padding
+    only is skipped: its winners would be -inf."""
+    best = first = None
     for (lo, shard), shard_excl in zip(column_shards(matrix), excl):
         limit = shard_limit(n_kmers, lo, shard)
         if lo and limit == 0:
@@ -85,14 +92,21 @@ def _sweep(matrix, args, n_kmers, excl):
             shard, *[a.to(dev) for a in args], limit, excl=shard_excl))
         bpi, bai = bpi.to(torch.int64) + lo, bai.to(torch.int64) + lo
         if best is None:
-            best = [bpu, bpi, bau, bai]
+            best, first = [bpu, bpi, bau, bai], lo
             continue
         take_p, take_a = bpu > best[0], bau > best[2]
         best = [torch.where(take_p, bpu, best[0]),
                 torch.where(take_p, bpi, best[1]),
                 torch.where(take_a, bau, best[2]),
                 torch.where(take_a, bai, best[3])]
-    return best
+    if best is None:  # every local shard is padding: nothing to offer
+        f = args[0].shape[0]
+        best = [torch.zeros(f, device=matrix.device),
+                torch.zeros(f, dtype=torch.int64, device=matrix.device)] * 2
+    vals, cols = combine_winners(matrix, first,
+                                 torch.stack([best[0], best[2]]),
+                                 torch.stack([best[1], best[3]]), np.greater)
+    return [vals[0], cols[0], vals[1], cols[1]]
 
 
 def _grid_step(matrix, state, step_i, n_kmers, excl):
@@ -163,6 +177,11 @@ def scm_cv_grid_device(matrix, fits, n_kmers, max_rules, excl_rules=None):
             )
     elif matrix.dtype != torch.int32 or matrix.dim() != 2:
         raise ValueError("grid engine expects a (W, K) int32 packed matrix")
+    if spans_processes(matrix):
+        check_agreement(
+            "the CV grid's fits, K, rule budget, matrix shape and blacklist",
+            *_build_fit_arrays(fits), n_kmers, max_rules, matrix.shape,
+            None if excl_rules is None else np.asarray(excl_rules, np.int64))
     excl = _excl_mask(excl_rules, n_kmers, matrix.shape[1])
     excl = [None if excl is None else torch.from_numpy(np.ascontiguousarray(
         excl[:, lo:lo + shard.shape[1]])).to(shard.device)

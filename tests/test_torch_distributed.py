@@ -120,6 +120,11 @@ except Exception as e:
     os._exit(3)  # a faulted worker must not wait on its peer at exit
 np.save(%(out)r + "%%d_kmers.npy" %% rank, km.kmers)
 np.save(%(out)r + "%%d_matrix.npy" %% rank, km.matrix)
+# Leave the group before the interpreter exits: gloo's threads torn down at
+# exit can abort the process ("terminate called without an active
+# exception").
+import torch.distributed
+torch.distributed.destroy_process_group()
 """
 
 

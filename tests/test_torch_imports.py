@@ -42,6 +42,7 @@ from grm_tpu_torch.dataset import MemoryArtifact, from_contigs
 from grm_tpu_torch.cli import main as cli_main
 from grm_tpu_torch.parallel.build import build_presence_matrix_distributed
 from grm_tpu_torch.parallel.mesh import make_mesh
+from grm_tpu_torch.ops import masked_popcount_colsum
 
 calls = [
     lambda: resolve_device(),
@@ -65,6 +66,8 @@ calls = [
     lambda: learn_SCM("unused.h5", "sp", "conjunction", 1.0, engine="device",
                       mesh=make_mesh(2, devices=["cpu", "cpu"])),
     lambda: build_presence_matrix_distributed([("g", "unused.fna")], 9),
+    lambda: masked_popcount_colsum(np.zeros((1, 4), np.uint32),
+                                   np.zeros(1, np.uint32)),
 ]
 for call in calls:
     try:

@@ -201,15 +201,17 @@ def test_one_dataset_serves_sharded_and_unsharded_runs(tmp_path,
     turn: each run gives its fresh run's model, a sharded learn reads the
     matrix once, and an unsharded run after a sharded one gets an
     unsharded matrix."""
-    from grm_tpu_torch.dataset import GrmDataset
+    from grm_tpu_torch.dataset import GrmDataset, artifact
 
     dense, labels = _scm_dense(5, n_genomes=60, n_kmers=517)
     path, _ = _artifact(tmp_path, dense, labels, "one", 5)
     ds = GrmDataset(path, device="cpu")
+    # Every load of the matrix, whole or sharded, goes through
+    # BitMatrix.from_u64 (a sharded one reads only its shards' words).
     reads = []
-    orig = ds.kmer_matrix_u64
-    monkeypatch.setattr(ds, "kmer_matrix_u64",
-                        lambda: reads.append(1) or orig())
+    orig = artifact.BitMatrix.from_u64.__func__
+    monkeypatch.setattr(artifact.BitMatrix, "from_u64", classmethod(
+        lambda cls, *a, **kw: reads.append(1) or orig(cls, *a, **kw)))
 
     def fresh(learn, fingerprint, **kwargs):
         return fingerprint(learn(dataset_file=path, device="cpu", **kwargs))
@@ -226,9 +228,10 @@ def test_one_dataset_serves_sharded_and_unsharded_runs(tmp_path,
         del reads[:]
         got = fingerprint(learn(dataset_file=ds, engine=engine, mesh=mesh,
                                 **kwargs))
+        n_reads = len(reads)
         assert got == fresh(learn, fingerprint, engine=engine, **kwargs)
         # A new layout is read once, the layout kept not at all.
-        assert len(reads) == (0 if sharded == layout else 1)
+        assert n_reads == (0 if sharded == layout else 1)
         assert ds._bit_matrix.sharded == sharded
         assert ds.bit_matrix(sharding=(
             None if mesh is None else MeshSharding(mesh))) is ds._bit_matrix
