@@ -65,7 +65,15 @@ Phases (any failure exits non-zero and prints no result):
    on the card against the same builders through the plain versions on
    the CPU, with and without the singleton filter, at k = 16, 31 and 33,
    at the all-T k-mer of k = 16 and 32, and with a batch bucket that is
-   exactly full.
+   exactly full. The radix sort (radix_sort) against sort_keys_plain,
+   keys, permutation and validity exactly: beside every sort of the cases
+   above (the merges also by segments), then at k = 1, 5, 21, 31, 32, 33
+   and 63 on 33 rows of 70,001 codes (over 500 of its tiles), the same
+   rows as copies of one genome (long runs of ties), the union merge's
+   rows in six unequal segments (one full, one empty, a count past its
+   rows); one row, three tiles and a row, every row invalid (one key,
+   with validity, two pairs), segments with no valid row, and the all-T
+   k-mer against KEY_INVALID at k = 31 and 32.
    The streamed matrix's chunk source: its double-buffered uploads from
    pinned memory (8 chunks, two buffers, the current stream kept busy)
    against a plain upload of each chunk, bit for bit, popcount_colsum on
@@ -201,21 +209,24 @@ Phases (any failure exits non-zero and prints no result):
    path, ``create-contigs``: ``ingest-device``'s genomes written as FASTA
    files of one contig with their labels as a metadata TSV (set-up), then
    ``from_contigs`` into a MemoryArtifact on the card (each genome counted
-   by one ``kmer_canon`` launch and a sort, the union merged on the host;
+   by one ``kmer_canon`` and one ``radix_sort`` launch, the union merged on the host;
    k = 31, the singleton filter), then the artifact loaded once (the
    ``load`` stage), ``split_with_proportion`` (5 folds) and
    ``learn_SCM(engine="device")`` on the loaded dataset. It must give ``ingest-device``'s union
    and matrix (genome rows mapped by id: ``from_contigs`` orders genomes
-   by label), 342 ``kmer_canon`` launches, and learn the three planted
+   by label), 342 ``kmer_canon`` and 342 ``radix_sort`` launches, and learn the three planted
    markers; each stage's wall is printed with the card's name and power
    limit (FASTA encode, counting on the card with its transfers, host
    merge, artifact write, split, learn), with the whole create's Mbp/s
    and the host's peak RSS. Then ``build-distributed``: two processes
    (``--build-worker``) on the card over ``create-contigs``' FASTA files
    (k = 31, the singleton filter), each counting its round-robin half;
-   both ranks' union and matrix must equal ``create-contigs``'; each
-   process's counting, exchange and merge walls, launches and peak RSS
-   are printed.
+   both ranks' union and matrix must equal ``create-contigs``', each
+   rank with one ``kmer_canon`` and one ``radix_sort`` launch a genome of
+   its half; each process's counting, exchange and merge walls, launches
+   and peak RSS are printed. ``ingest-device`` must launch radix_sort
+   once a batch and once for the merge (12), and its profile splits the
+   sorts' device time into the batches' and the merge's.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
@@ -244,12 +255,14 @@ Phases (any failure exits non-zero and prints no result):
    node (the hot-key case), each equal to its plain version, with bounds as
    above (the distinct splits' divisions and logs, the b1 counting of N x
    (C + 1) mask rows, the matrix read and the outputs); the tuple tables'
-   pass-bitmap fill also on its own, on a line of its own. The four ingest
+   pass-bitmap fill also on its own, on a line of its own. The five ingest
    kernels at phase 5's shapes (one 32-genome batch; every batch's union;
    the merged matrix), each a call of its wrapper by CUDA events with the
    hand kernels' own device time beside it, against the bytes bound
-   (build_columns also with its ``ptxas`` registers and spills), and
-   ``torch.sort`` at one batch on a line of its own. deinterleave_u64 over
+   (build_columns also with its ``ptxas`` registers and spills);
+   radix_sort at one batch and at the merge (by segments), each beside
+   ``torch.sort`` of the same keys (``library_ms``) and the bytes of its
+   design's passes (``bound_ms_passes``). deinterleave_u64 over
    the whole 342 x 9.6M matrix in one launch against its bytes bound, its
    plain version and ``torch.stack`` of the strided halves
    (``library_ms``); then the load itself, BitMatrix.from_u64 through the
@@ -325,6 +338,17 @@ HOT_CASE_LENGTH, HOT_RUN = 16 * 4096 + 77, 1000
 # and 64 two planes.
 MERGE_CASE_KS = (9, 31, 32, 33, 64)
 MERGE_CASE_SPLITS = ((0, 32, 64, 70), (0, 64, 70))
+# Phase 3's radix sort cases (tests/test_torch_cuda.py takes them too): the
+# windows of SORT_CASE_GENOMES rows of SORT_CASE_LENGTH codes (over 500 of
+# the kernel's tiles of 4096 rows at k <= 31), as ingest_codes makes them
+# and as copies of one genome, at each k (a single key to k = 31, pairs
+# with validity past it); the union merge's rows in SORT_SEGMENTS' segments
+# (rows, valid count: one full, one empty, a count past its rows); then
+# the edges (sort_edge_cases).
+SORT_CASE_KS = (1, 5, 21, 31, 32, 33, 63)
+SORT_CASE_GENOMES, SORT_CASE_LENGTH = 33, 70_001
+SORT_SEGMENTS = ((1 << 16, 50_000), (1 << 12, 0), (1 << 16, 1 << 16),
+                 (1 << 14, 20_000), (1 << 10, 2000), (3 << 10, 7))
 # Streaming (a matrix past 60% of the device memory budget stays in host
 # memory and goes up chunk by chunk). Phase 3's chunk-source case: 11 word
 # rows (342 genomes), 8 chunks of 4096 columns, the last ragged: more chunks
@@ -375,6 +399,10 @@ KERNELS = {
     # split after its upload, in BitMatrix.from_u64 (:297).
     "deinterleave_u64": ("grm_tpu_torch/csrc/deinterleave.cu",
                          "grm_tpu/ops/popcount.py:69"),
+    # An XLA program on the TPU (no pallas_call): the stable lax.sort of a
+    # batch's windows (device_build.py:88), of the union merge's rows
+    # (:182) and of one genome's windows (kmer.py:177).
+    "radix_sort": ("grm_tpu_torch/csrc/sort.cu", "grm_tpu/ops/kmer.py:110"),
 }
 # The kernels each main path is built on. learn scm: the exact engine's
 # pass 1 and pass 2; the argmax engine's CV sweep, its winner-block recount,
@@ -383,11 +411,12 @@ KERNELS = {
 # chosen master's equivalence sets; the argmax engine's frontier sweep; the
 # host engine's per-node class counts. The streamed paths: the same exact
 # engines' kernels on each chunk uploaded from host memory (pass 2 of SCM on
-# the compacted hit superblocks). Device ingest: the windows, the
-# batch columns, the union merge, the singleton filter (its column counts
-# inside its kernel), then train_scm's greedy steps (popcount_colsum).
-# Dataset creation: each genome's windows (counted on the card, merged on
-# the host), then learn_SCM's exact engine. Each path that loads a resident
+# the compacted hit superblocks). Device ingest: the windows, their sort
+# (one a batch, one for the merge), the batch columns, the union merge,
+# the singleton filter (its column counts inside its kernel), then
+# train_scm's greedy steps (popcount_colsum). Dataset creation: each
+# genome's windows and their sort (counted on the card, merged on the
+# host), then learn_SCM's exact engine. Each path that loads a resident
 # artifact splits its matrix on the card (deinterleave_u64, one launch a
 # staged chunk).
 PATH_KERNELS = {
@@ -401,11 +430,11 @@ PATH_KERNELS = {
     "device-streamed": ("scm_sweep_sbmax", "popcount_colsum_pairs"),
     "tree-device-streamed": ("cart_sweep", "cart_exact_tuples",
                              "cart_exact_select"),
-    "ingest-device": ("kmer_canon", "build_columns", "merge_columns",
-                      "compact_columns", "popcount_colsum"),
-    "create-contigs": ("kmer_canon", "deinterleave_u64", "scm_sweep_sbmax",
-                       "popcount_colsum_pairs"),
-    "build-distributed": ("kmer_canon",),
+    "ingest-device": ("kmer_canon", "radix_sort", "build_columns",
+                      "merge_columns", "compact_columns", "popcount_colsum"),
+    "create-contigs": ("kmer_canon", "radix_sort", "deinterleave_u64",
+                       "scm_sweep_sbmax", "popcount_colsum_pairs"),
+    "build-distributed": ("kmer_canon", "radix_sort"),
 }
 # The sharded paths run their unsharded path's kernels, once a shard.
 SHARDED_PATHS = ("device", "device-argmax", "tree-device",
@@ -439,6 +468,8 @@ KERNEL_FUNCTIONS = {
     "merge_columns": "merge_columns_tile_kernel",
     "compact_columns": "compact_columns_tile_kernel",
     "deinterleave_u64": "deinterleave_u64_kernel",
+    "radix_sort": ("sort_hist_kernel", "sort_scan_kernel", "sort_pass_kernel",
+                   "sort_tail_kernel"),
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -1319,7 +1350,9 @@ def ingest_case(device, rng, k, n_genomes, record):
 
     canon(codes, what)
     keys, valid = km.window_keys(codes, k)
-    keys, perm, valid = km.sort_keys(keys, valid)
+    ordered = km.sort_keys(keys, valid)
+    record("radix_sort", ordered, km.sort_keys_plain(keys, valid), what)
+    keys, perm, valid = ordered
     for budget in (g * n, 700):
         record("build_columns",
                db.build_columns(keys, perm, valid, nw, n, budget),
@@ -1351,9 +1384,15 @@ def merge_case(parts, k, w_total, budgets, what, record):
     words = torch.cat([p[1] for p in parts])
     valids = torch.cat([torch.arange(p[1].shape[0], device=words.device)
                         < p[2] for p in parts])
-    keys, perm, valid = km.sort_keys(
-        km.pair_keys(words.T, valids),
-        None if k <= km.MAX_SINGLE_KEY_K else valids)
+    keys = km.pair_keys(words.T, valids)
+    valids = None if k <= km.MAX_SINGLE_KEY_K else valids
+    ordered = km.sort_keys(keys, valids)
+    want = km.sort_keys_plain(keys, valids)
+    record("radix_sort", ordered, want, what + " merge")
+    record("radix_sort", km.sort_keys(
+        keys, valids, segments=[(p[1].shape[0], p[2]) for p in parts]),
+        want, what + " merge, by segments")
+    keys, perm, valid = ordered
     batches = [(p[0], p[3]) for p in parts]
     nw = km.n_words_for_k(k)
     for budget in budgets:
@@ -1473,12 +1512,122 @@ def ingest_builder_cases(device, rng, record):
     builders(full, 31, "bucket exactly full", batch_budget=1024)
 
 
+def segment_keys(rng, k, segments, device):
+    """The union merge's rows in ``segments`` ((rows, valid count) each):
+    a segment's first rows its sorted k-mers, drawn from one pool so that
+    segments share k-mers, the rest invalid. Returns (keys, the validity
+    past k = 31 or None, the segments with their counts as (1,) int32
+    tensors on the device)."""
+    import torch
+
+    from grm_tpu_torch.ops import kmer as km
+
+    nw = km.n_words_for_k(k)
+    total = sum(min(c, r) for r, c in segments)
+    pool = rng.randint(0, 2**32, (2 * total + 16, nw),
+                       dtype=np.uint64).astype(np.uint32)
+    if 2 * k % 32:
+        pool[:, -1] &= np.uint32((0xFFFFFFFF << (32 - 2 * k % 32))
+                                 & 0xFFFFFFFF)
+    pool = np.unique(pool, axis=0)
+    words, valids, segs = [], [], []
+    for rows, count in segments:
+        c = min(count, rows)
+        pick = np.sort(rng.choice(len(pool), c, replace=len(pool) < c))
+        w = np.zeros((rows, nw), np.uint32)
+        w[:c] = pool[pick]
+        words.append(w)
+        valids.append(np.arange(rows) < count)
+        segs.append((rows, torch.tensor([count], dtype=torch.int32,
+                                        device=device)))
+    words = torch.from_numpy(np.concatenate(words).view(np.int32)).to(device)
+    valids = torch.from_numpy(np.concatenate(valids)).to(device)
+    return (km.pair_keys(words.T, valids),
+            None if k <= km.MAX_SINGLE_KEY_K else valids, segs)
+
+
+def sort_case(device, rng, k, record):
+    """One of phase 3's radix sort cases at k, the kernel against
+    sort_keys_plain: the windows of SORT_CASE_GENOMES rows of
+    SORT_CASE_LENGTH codes (ingest_codes), the same as copies of one genome
+    with 20 changes each (every k-mer in every genome: long runs of ties),
+    and the union merge's rows by SORT_SEGMENTS' segments."""
+    import torch
+
+    from grm_tpu_torch.ops import kmer as km
+
+    g, n = SORT_CASE_GENOMES, SORT_CASE_LENGTH
+    codes = ingest_codes(rng, g, n, k)
+    copies = np.repeat(codes[1:2], g, 0)
+    for row in copies[1:]:
+        row[rng.randint(0, n, 20)] = rng.randint(0, 4, 20)
+    for label, c in (("", codes), (", copies of one genome", copies)):
+        keys, valid = km.window_keys(torch.from_numpy(c).to(device), k)
+        record("radix_sort", km.sort_keys(keys, valid),
+               km.sort_keys_plain(keys, valid),
+               "k=%d G=%d L=%d%s" % (k, g, n, label))
+    keys, valid, segs = segment_keys(rng, k, SORT_SEGMENTS, device)
+    record("radix_sort", km.sort_keys(keys, valid, segments=segs),
+           km.sort_keys_plain(keys, valid),
+           "k=%d merge segments %s" % (k, SORT_SEGMENTS))
+
+
+def sort_edge_cases(device, rng, record):
+    """Phase 3's radix sort edges, the kernel against sort_keys_plain: one
+    row; three tiles and a row; every row invalid (one key, one key with
+    validity, two pairs with validity); segments with no valid row; the
+    all-T k-mer against KEY_INVALID: at k = 31 a valid key that differs
+    from it only below the live bits, at k = 32 a valid key equal to it."""
+    import torch
+
+    from grm_tpu_torch.ops import kmer as km
+
+    def check(keys, valid, what, segments=None):
+        keys = keys.to(device)
+        valid = None if valid is None else valid.to(device)
+        record("radix_sort", km.sort_keys(keys, valid, segments=segments),
+               km.sort_keys_plain(keys, valid), what)
+
+    sign = np.uint64(1 << 63)
+    for n in (1, 3 * 4096 + 1):
+        u = rng.randint(0, 2**62, n, dtype=np.int64).view(np.uint64) << \
+            np.uint64(2)
+        keys = torch.from_numpy((u ^ sign).view(np.int64)[None].copy())
+        keys[0, torch.from_numpy(rng.rand(n) < 0.2)] = km.KEY_INVALID
+        check(keys, None, "%d rows" % n)
+    n = 10_007
+    for planes, with_valid in ((1, False), (1, True), (2, True)):
+        check(torch.full((planes, n), km.KEY_INVALID, dtype=torch.int64),
+              torch.zeros(n, dtype=torch.bool) if with_valid else None,
+              "every row invalid, %d planes, validity %s"
+              % (planes, with_valid))
+    keys, valid, _ = segment_keys(rng, 31, ((4096, 0), (1024, 0)), device)
+    check(keys, valid, "segments with no valid row",
+          [(4096, 0), (1024, torch.zeros(1, dtype=torch.int32,
+                                         device=device))])
+    n = 50_000
+    for k in (31, 32):
+        all_t = ~np.uint64((1 << (64 - 2 * k)) - 1) if k < 32 \
+            else ~np.uint64(0)
+        u = rng.randint(0, 2**62, n, dtype=np.int64).view(np.uint64) << \
+            np.uint64(2)
+        u &= all_t
+        u[rng.rand(n) < 0.3] = all_t
+        keys = torch.from_numpy((u ^ sign).view(np.int64)[None].copy())
+        valid = torch.from_numpy(rng.rand(n) > 0.3)
+        keys[0, ~valid] = km.KEY_INVALID
+        check(keys, valid, "the all-T k-mer, k=%d, with validity" % k)
+        if k <= km.MAX_SINGLE_KEY_K:
+            check(keys, None, "the all-T k-mer, k=%d" % k)
+
+
 def check_ingest_kernels(device):
     """Phase 3, ingest: kmer_canon, build_columns, merge_columns and
     compact_columns equal their plain versions exactly on the card at every
-    (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case),
-    build_columns over many tiles (hot_kmer_case), merge_columns on
-    unequal batches (merge_cases), then the builders
+    (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case), with
+    radix_sort beside them, build_columns over many tiles (hot_kmer_case),
+    merge_columns on unequal batches (merge_cases), the radix sort's own
+    cases (sort_case at SORT_CASE_KS, sort_edge_cases), then the builders
     (ingest_builder_cases).
     Returns the largest error per kernel (all 0.0)."""
     rng = np.random.RandomState(5)
@@ -1498,6 +1647,9 @@ def check_ingest_kernels(device):
         hot_kmer_case(device, rng, k, record)
     for k in MERGE_CASE_KS:
         merge_cases(device, rng, k, record)
+    for k in SORT_CASE_KS:
+        sort_case(device, rng, k, record)
+    sort_edge_cases(device, rng, record)
     ingest_builder_cases(device, rng, record)
     return worst
 
@@ -2665,10 +2817,11 @@ def run_create(device, seed, paths, ingest, card, then=None):
         "%.4f, test risk %.4f" % (fp["hp"], fp["score"], fp["rules"],
                                   fp["train"]["risk"][0],
                                   fp["test"]["risk"][0]))
-    if paths["create-contigs"]["kmer_canon"] != n_genomes:
-        raise AssertionError("create-contigs: %d kmer_canon launches for %d "
-                             "genomes" % (paths["create-contigs"]
-                                          ["kmer_canon"], n_genomes))
+    for kname in ("kmer_canon", "radix_sort"):  # one each a genome
+        if paths["create-contigs"][kname] != n_genomes:
+            raise AssertionError("create-contigs: %d %s launches for %d "
+                                 "genomes" % (paths["create-contigs"][kname],
+                                              kname, n_genomes))
     missing = [k for k in PATH_KERNELS["create-contigs"]
                if paths["create-contigs"][k] == 0]
     if missing:
@@ -2898,6 +3051,12 @@ def run_ingest(device, seed, paths):
                if paths["ingest-device"][k] == 0]
     if missing:
         raise AssertionError("path 'ingest-device' launched no %s" % missing)
+    n_batches = -(-INGEST_GENOMES // INGEST_BATCH)
+    if paths["ingest-device"]["radix_sort"] != n_batches + 1:
+        raise AssertionError("ingest-device: %d radix_sort launches, not one "
+                             "a batch and one for the merge (%d)"
+                             % (paths["ingest-device"]["radix_sort"],
+                                n_batches + 1))
     want = (ds.kmer_count, rules)
     union = ds.dm.union_kmers_host()
     matrix = ds.dm.matrix[:, :ds.kmer_count].clone()
@@ -2916,17 +3075,44 @@ def run_ingest(device, seed, paths):
         log("    device time by kernel: not measured (no device events)")
         return ingest
     total = sum(r[0] for r in rows) / 1e3
-    sort_ms = sum(r[0] for r in rows if "sort" in r[1].lower()) / 1e3
+    batch_ms, merge_ms = sort_split(prof)
     log("    device time over ingest-device: %.2f ms = %.1f%% busy of the "
-        "%.3f s unprofiled wall; the sorts %.2f ms; by kernel:"
+        "%.3f s unprofiled wall; the sorts' kernels %.2f ms: the batches' "
+        "%.2f ms (%d sorts), the merge's %.2f ms; by kernel:"
         % (total, 100.0 * total / ((t_build + t_fit) * 1e3),
-           t_build + t_fit, sort_ms))
+           t_build + t_fit, batch_ms + merge_ms, batch_ms,
+           -(-INGEST_GENOMES // INGEST_BATCH), merge_ms))
     # The ten longest lines, then every line of the path's hand kernels.
     hand = [KERNEL_FUNCTIONS[k] for k in PATH_KERNELS["ingest-device"]]
     for i, (us, key, count) in enumerate(sorted(rows, reverse=True)):
         if i < 10 or any(_is_function(key, f) for f in hand):
             log("      %9.3f ms  %5d x  %s" % (us / 1e3, count, key[:90]))
     return ingest
+
+
+def sort_split(prof):
+    """The device ms of the radix sort's kernels in a profiled
+    ``ingest-device`` run: (the batches' sorts, the merge's sort), the
+    merge's being the sort kernels that ran after the last
+    build_columns."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    last_build = max((e.time_range.start for e in kernels
+                      if _is_function(e.name,
+                                      KERNEL_FUNCTIONS["build_columns"])),
+                     default=float("inf"))
+    batch = merge = 0.0
+    for e in kernels:
+        if _is_function(e.name, KERNEL_FUNCTIONS["radix_sort"]):
+            ms = e.time_range.elapsed_us() / 1e3
+            if e.time_range.start > last_build:
+                merge += ms
+            else:
+                batch += ms
+    return batch, merge
 
 
 def time_load(m64, n_rows, device, paths, card):
@@ -3049,18 +3235,41 @@ def time_load(m64, n_rows, device, paths, card):
     return {"deinterleave_u64": row}
 
 
+def sort_passes(k):
+    """The passes the radix sort runs over ingest keys of k (csrc/sort.cu:
+    digits of kDigitBits from the top of the 64 P + 1 composite bits; a
+    digit below the 2k live bits and the invalid flag skips its pass)."""
+    from grm_tpu_torch.ops.kmer import n_words_for_k
+
+    src = open(os.path.join(REPO, "grm_tpu_torch", "csrc", "sort.cu")).read()
+    width = int(re.search(r"constexpr int kDigitBits = (\d+);", src).group(1))
+    top = 64 * -(-n_words_for_k(k) // 2) + 1
+    return sum(1 for hi in range(top, 0, -width) if hi > top - 1 - 2 * k)
+
+
+def sort_pass_bytes(k, rows, sorted_rows):
+    """The radix sort's bytes by its design: per sorted row 8 for the
+    histograms, then a pass each reading and writing the key and a 32-bit
+    payload (the first reads no payload, the last writes an int64
+    position), at one key plane; each other row's key and position
+    written once (the merge's invalid tails)."""
+    return (24 * sort_passes(k) + 8) * sorted_rows + 16 * (rows - sorted_rows)
+
+
 def time_ingest_kernels(codes_list, device, paths, card):
-    """Phase 6, ingest: each of the four kernels at phase 5's shapes (one
-    32-genome batch for kmer_canon and build_columns; every batch's union
-    for merge_columns; the merged matrix for compact_columns), equal to its
-    plain version on the same inputs, and torch.sort at one batch. ``ms``
+    """Phase 6, ingest: each of the five kernels at phase 5's shapes (one
+    32-genome batch for kmer_canon, radix_sort and build_columns; every
+    batch's union for radix_sort and merge_columns; the merged matrix for
+    compact_columns), equal to its plain version on the same inputs. ``ms``
     is one call of the wrapper by CUDA events (its output fills and scratch
     zeroing included), ``kernel_ms`` the hand kernel's own device time from
     torch.profiler; ``bound_ms`` the bytes that the call's inputs need read
-    once and its outputs written once, at the memory rate: merge_columns'
-    valid rows (``bound_ms_all_rows`` counts every row read) and
-    compact_columns' live columns (``bound_ms_whole``: the whole matrix).
-    Returns the rows."""
+    once and its outputs written once, at the memory rate: the merge
+    sort's and merge_columns' valid rows (``bound_ms_all_rows`` counts
+    every row read) and compact_columns' live columns (``bound_ms_whole``:
+    the whole matrix). radix_sort's ``library_ms`` is torch.sort (stable,
+    with indices) of the same keys, and ``bound_ms_passes`` its design's
+    bytes (sort_pass_bytes). Returns the rows."""
     import torch
 
     from grm_tpu_torch.ops import device_build as db
@@ -3069,20 +3278,24 @@ def time_ingest_kernels(codes_list, device, paths, card):
 
     rows = {}
 
-    def row(name, kernel, plain, nbytes, reps, shape, keep=(), **more):
+    def row(name, kernel, plain, nbytes, reps, shape, keep=(), library=None,
+            **more):
+        kname = name.split(":")[0]
         err = exact_err(kernel(), plain())
         if err != 0.0:
             raise AssertionError("%s differs from its plain version at the "
                                  "main path's shapes (%r)" % (name, err))
         ms = time_cuda(kernel, reps)
-        kernel_ms, timed_by = device_ms(kernel, reps, KERNEL_FUNCTIONS[name])
+        kernel_ms, timed_by = device_ms(kernel, reps, KERNEL_FUNCTIONS[kname])
         rows[name] = {"max_abs_err": err, "ms": ms,
                       "plain_ms": time_cuda(plain, 1),
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bound_by": "bytes", "library_ms": None, **dict(keep)}
+                      "bound_by": "bytes",
+                      "library_ms": library and time_cuda(library, reps),
+                      **dict(keep)}
         log(json.dumps({"kernel": name, "shape": shape, **rows[name],
                         "kernel_ms": kernel_ms, "timed_by": timed_by,
-                        "launches": {e: paths[e][name] for e in paths},
+                        "launches": {e: paths[e][kname] for e in paths},
                         **more, "card": card}))
 
     batch = codes_list[:INGEST_BATCH]
@@ -3100,12 +3313,12 @@ def time_ingest_kernels(codes_list, device, paths, card):
         n * (1 + 8), 20, shape + " (the sort key)")
     keys, _ = km.window_keys(codes, INGEST_K)
     del codes
-    sort_ms = time_cuda(lambda: torch.sort(keys[0], stable=True), 5)
-    log(json.dumps({"library": "torch.sort", "shape": "%d int64 keys, "
-                    "stable, with indices (one batch)" % n, "ms": sort_ms,
-                    "library_ms": sort_ms,
-                    "bound_ms": 24 * n / HBM_BYTES_PER_S * 1e3,
-                    "bound_by": "bytes", "card": card}))
+    row("radix_sort", lambda: km.sort_keys(keys),
+        lambda: km.sort_keys_plain(keys), 24 * n, 5,
+        "%d int64 keys (one batch), %d passes" % (n, sort_passes(INGEST_K)),
+        keep={"bound_ms_passes": sort_pass_bytes(INGEST_K, n, n)
+              / HBM_BYTES_PER_S * 1e3},
+        library=lambda: torch.sort(keys[0], stable=True))
     keys, perm, _ = km.sort_keys(keys)
     bucket = INGEST_BUDGET
     row("build_columns",
@@ -3123,8 +3336,22 @@ def time_ingest_kernels(codes_list, device, paths, card):
     words = torch.cat([b[1] for b in batches])
     valids = torch.cat([torch.arange(bucket, device=device) < b[2]
                         for b in batches])
-    mkeys, mperm, _ = km.sort_keys(km.pair_keys(words.T, valids))
+    mkeys = km.pair_keys(words.T, valids)
     del words, valids
+    segments = [(bucket, b[2]) for b in batches]
+    sorted_rows = sum(int(b[2]) for b in batches)
+    row("radix_sort:merge", lambda: km.sort_keys(mkeys, segments=segments),
+        lambda: km.sort_keys_plain(mkeys),
+        24 * sorted_rows + 16 * (mkeys.shape[1] - sorted_rows), 3,
+        "%d batches x %d union rows, %d valid, by segments"
+        % (len(batches), bucket, sorted_rows),
+        keep={"bound_ms_all_rows": 24 * mkeys.shape[1] / HBM_BYTES_PER_S
+              * 1e3,
+              "bound_ms_passes": sort_pass_bytes(INGEST_K, mkeys.shape[1],
+                                                 sorted_rows)
+              / HBM_BYTES_PER_S * 1e3},
+        library=lambda: torch.sort(mkeys[0], stable=True))
+    mkeys, mperm, _ = km.sort_keys(mkeys, segments=segments)
     w_total = -(-len(codes_list) // 32)
     merged = [(b[0], b[3] // 32) for b in batches]
     r, out_bytes = mkeys.shape[1], 4 * INGEST_BUDGET * (nw + w_total) + 4
@@ -3538,10 +3765,15 @@ def run_build_distributed(specs, ingest, paths, card):
         "after the singleton filter == create-contigs' union and matrix; "
         "wall %.1f s with both processes' start" % (card, len(specs),
                                                     len(union), wall))
-    if launches.get("kmer_canon", 0) != len(specs):
-        raise AssertionError("build-distributed: %s kmer_canon launches for "
-                             "%d genomes" % (launches.get("kmer_canon"),
-                                             len(specs)))
+    for kname in ("kmer_canon", "radix_sort"):  # one each a genome
+        if launches.get(kname, 0) != len(specs) or any(
+                out["launches"].get(kname, 0) != len(specs[rank::2])
+                for rank, (_, out, _) in enumerate(ranks)):
+            raise AssertionError(
+                "build-distributed: %s %s launches for %d genomes (%s a "
+                "process)" % (launches.get(kname), kname, len(specs),
+                              [out["launches"].get(kname)
+                               for _, out, _ in ranks]))
 
 
 def save_artifact(mem, directory):

@@ -7,8 +7,8 @@ reads each FASTA / FASTQ file (gzipped or not) and encodes it with the
 port's native encoder (``grm_encode_fasta`` / ``grm_encode_fastq``,
 :mod:`grm_tpu_torch.native`); then the card counts it through
 :func:`grm_tpu_torch.ops.kmer.sorted_kmers_np`: one ``kmer_canon`` launch a
-genome, the stable ``torch.sort`` of its keys and the run flags, with
-counts in reads mode. The result is the sorted distinct canonical k-mers
+genome, the stable radix sort of its keys (``csrc/sort.cu``; the CPU's is
+``sort_keys_plain``) and the run flags, with counts in reads mode. The result is the sorted distinct canonical k-mers
 (contigs mode) or k-mer counts with multidsk's ``-abundance-min`` filter
 (reads mode).
 

@@ -30,7 +30,7 @@ __all__ = ["library", "build_all", "check", "launches", "cart_frontiers",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels"
 SOURCES = ("popcount_colsum", "scm_sweep", "cart_sweep", "cart_exact",
-           "bmma_probe", "kmer", "device_build", "deinterleave")
+           "bmma_probe", "kmer", "device_build", "deinterleave", "sort")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,7 @@ launches = {
     "merge_columns": 0,
     "compact_columns": 0,
     "deinterleave_u64": 0,
+    "radix_sort": 0,
 }
 # (nodes, criterion) of the latest cart_sweep launches, one entry beside
 # each count: the frontier sizes a path really gave the kernel.

@@ -9,8 +9,9 @@ Port of ``grm_tpu/ops/kmer.py``, under the same names:
    :func:`kmer_canon_plain` on a CPU one) gives, for every window start,
    the canonical words (the lexicographic minimum of the forward window and
    its reverse complement, A<C<G<T) and the window's validity;
-3. ``torch.sort`` (stable) orders the windows and run flags give the
-   distinct k-mers and their counts.
+3. :func:`sort_keys` (the stable radix sort ``csrc/sort.cu`` on a CUDA
+   tensor, :func:`sort_keys_plain`'s ``torch.sort`` on a CPU one) orders
+   the windows, and run flags give the distinct k-mers and their counts.
 
 k-mers are (n, n_words) words, big-endian word order, bases packed
 MSB-first and the last word left-aligned, so numeric order of the unsigned
@@ -18,16 +19,16 @@ words is DNA lexicographic order for a fixed k. Words travel as int32 bit
 patterns on the device and as uint32 on the host, as ``grm_tpu``'s do. k
 is at most 128 (8 words).
 
-The sort keys. ``torch.sort`` orders int64 as signed, so a pair of words
+The sort keys. The sort orders int64 as signed, so a pair of words
 ``(hi, lo)`` becomes the int64 ``((hi << 32) | lo) ^ 2**63``
 (:func:`pair_keys`), and an invalid window gets ``KEY_INVALID``
 (``2**63 - 1``). For k <= 31 a k-mer uses at most 62 bits of its pair, so
 no valid k-mer reaches ``KEY_INVALID`` and one sort of one key orders
-[invalid, words]; the kernel writes that key itself. For other k the keys
-are sorted one pair at a time, least significant first, then by validity
-(:func:`sort_keys`). Every sort is stable, so rows that tie keep their
-input order: with the rows laid out genome by genome, that is the genome
-order ``grm_tpu``'s last sort key gives.
+[invalid, words]; ``kmer_canon`` writes that key itself. For other k the
+rows sort by [invalid, pairs...] (:func:`sort_keys`). Every sort is
+stable, so rows that tie keep their input order: with the rows laid out
+genome by genome, that is the genome order ``grm_tpu``'s last sort key
+gives.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ __all__ = [
     "pair_keys",
     "run_flags",
     "sort_keys",
+    "sort_keys_plain",
     "window_keys",
     "unpack_keys",
     "extract_sorted_kmers",
@@ -73,6 +75,14 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "grm_kmer_canon": ([_P, _I, _L, _I, _P, _P, _P, _P], _I),
 }
+_SORT_SIGNATURES = {
+    "grm_radix_sort_scratch_words": ([_I, _L], _L),
+    "grm_radix_sort_work_bytes": ([_I, _L], _L),
+    "grm_radix_sort": ([_P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+                       _I),
+}
+MAX_SORT_PAIRS = 4  # csrc/sort.cu kMaxPlanes
+MAX_SORT_SEGMENTS = 1024  # csrc/sort.cu kMaxSegments
 
 
 def n_words_for_k(k):
@@ -213,16 +223,38 @@ def unpack_keys(keys, nw):
     return torch.stack(out)
 
 
-def sort_keys(keys, valid=None):
-    """Stable sort of rows by [invalid, key pairs...].
+def _check_sort(keys, valid, segments):
+    if keys.dtype != torch.int64 or keys.dim() != 2 \
+            or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous (n_pairs, n) int64 tensor")
+    n_pairs, n = keys.shape
+    if not 1 <= n_pairs <= MAX_SORT_PAIRS:
+        raise ValueError("1 to %d key planes a sort" % MAX_SORT_PAIRS)
+    if n >= 2**31:
+        raise ValueError("at most 2**31 - 1 rows a sort")
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != (n,)
+                              or valid.device != keys.device):
+        raise ValueError("valid must be (n,) bool on the keys' device")
+    if segments is None:
+        return
+    if not 1 <= len(segments) <= MAX_SORT_SEGMENTS:
+        raise ValueError("1 to %d segments a sort" % MAX_SORT_SEGMENTS)
+    if sum(int(rows) for rows, _ in segments) != n:
+        raise ValueError("the segments' rows must add up to the keys' rows")
+    for _, count in segments:
+        if isinstance(count, torch.Tensor) and (
+                count.numel() != 1 or count.device != keys.device
+                or count.dtype not in (torch.int32, torch.int64)):
+            raise ValueError("a segment's valid count must be an int or a "
+                             "(1,) integer tensor on the keys' device")
 
-    keys: (n_pairs, n) int64 from :func:`pair_keys` or the kernel's single
-    key; ``valid``: (n,) bool, or None where ``KEY_INVALID`` can only mean
-    an invalid row (a single key, k <= 31). Returns (sorted keys, the
-    permutation (n,) int64, sorted validity or None). One ``torch.sort``
-    per pair, least significant first, plus one by validity where
-    ``valid`` is given.
-    """
+
+def sort_keys_plain(keys, valid=None):
+    """Plain PyTorch version of :func:`sort_keys`: one stable
+    ``torch.sort`` per pair, least significant first, plus one by validity
+    where ``valid`` is given."""
+    _check_sort(keys, valid, None)
     if keys.shape[0] == 1 and valid is None:
         s, perm = torch.sort(keys[0], stable=True)
         return s[None], perm, None
@@ -234,6 +266,67 @@ def sort_keys(keys, valid=None):
         _, idx = torch.sort((~valid[perm]).to(torch.uint8), stable=True)
         perm = perm[idx]
     return keys[:, perm], perm, None if valid is None else valid[perm]
+
+
+def sort_keys(keys, valid=None, segments=None):
+    """Stable sort of rows by [invalid, key pairs...].
+
+    keys: (n_pairs, n) int64 from :func:`pair_keys` or ``kmer_canon``'s
+    single key; ``valid``: (n,) bool, or None where ``KEY_INVALID`` can only
+    mean an invalid row (a single key, k <= 31). Returns (sorted keys, the
+    permutation (n,) int64, sorted validity or None).
+
+    ``segments`` (optional): the rows as consecutive segments, ``[(rows,
+    valid count), ...]``, the count an int or a (1,) integer tensor on the
+    keys' device, where the first ``min(count, rows)`` rows of each segment
+    are valid and the rest invalid (``KEY_INVALID`` in every pair, ``valid``
+    False): the union merge's batches. The kernel then reads only the valid
+    rows and writes the invalid ones after them in input order; the result
+    is the same.
+
+    A CUDA tensor launches the stable LSD radix sort of ``csrc/sort.cu``;
+    a CPU tensor takes :func:`sort_keys_plain`.
+    """
+    _check_sort(keys, valid, segments)
+    if keys.device.type != "cuda":
+        return sort_keys_plain(keys, valid)
+    lib = _build.library("sort", _SORT_SIGNATURES)
+    n_pairs, n = keys.shape
+    dev = keys.device
+    out = torch.empty_like(keys)
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    out_valid = None if valid is None else torch.empty(
+        n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, perm, out_valid
+    seg_start = seg_count = None
+    if segments is not None:
+        rows = np.cumsum([0] + [int(r) for r, _ in segments])
+        seg_start = torch.from_numpy(rows.astype(np.int64)).pin_memory().to(
+            dev, non_blocking=True)
+        seg_count = torch.cat([
+            c.reshape(1).to(torch.int32) if isinstance(c, torch.Tensor)
+            else torch.tensor([int(c)], dtype=torch.int32, device=dev)
+            for _, c in segments])
+    # The status words of the passes' look-back need zeroing; the work
+    # buffers do not.
+    scratch = torch.zeros(lib.grm_radix_sort_scratch_words(n_pairs, n),
+                          dtype=torch.int64, device=dev)
+    work = torch.empty(lib.grm_radix_sort_work_bytes(n_pairs, n),
+                       dtype=torch.uint8, device=dev)
+    valid = None if valid is None else valid.contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        _build.check(lib.grm_radix_sort(
+            keys.data_ptr(), n_pairs, n, ptr(valid), ptr(seg_start),
+            ptr(seg_count),
+            0 if segments is None else len(segments),
+            out.data_ptr(), perm.data_ptr(), ptr(out_valid),
+            work.data_ptr(), scratch.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+            "radix_sort")
+        _build.launches["radix_sort"] += 1
+    return out, perm, out_valid
 
 
 def run_flags(keys, valid=None):

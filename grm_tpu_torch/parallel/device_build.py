@@ -5,10 +5,11 @@ Port of ``grm_tpu/parallel/device_build.py``, under the same names:
 
 1. canonical windows of every genome of a batch
    (:func:`~grm_tpu_torch.ops.kmer.kmer_canon`, one CUDA kernel);
-2. one stable ``torch.sort`` of the windows' keys (a pass per pair of
-   k-mer words past k = 31); the rows are laid out genome by genome, so
-   rows of one k-mer stay in genome order and duplicate (k-mer, genome)
-   rows are adjacent;
+2. one stable sort of the windows' keys
+   (:func:`~grm_tpu_torch.ops.kmer.sort_keys`: the radix sort of
+   ``csrc/sort.cu`` on the card, ``sort_keys_plain`` on the CPU); the rows
+   are laid out genome by genome, so rows of one k-mer stay in genome
+   order and duplicate (k-mer, genome) rows are adjacent;
 3. :func:`~grm_tpu_torch.ops.device_build.build_columns` gives each
    distinct k-mer its union column and sets the genome bits of the packed
    (W, k_budget) matrix;
@@ -88,9 +89,10 @@ def _merge_columns(batches, k, k_budget, w_total):
     (1,), word row, bucket) each, the union's valid prefix sorted as
     :func:`_build` leaves it. Returns the final matrix (w_total, k_budget)
     int32, the merged union words (k_budget, nw) and the merged k-mer
-    count (1,) int32. One sort of the concatenated rows (a pass per pair
-    of words past k = 31), whatever the number of batches; ties keep the
-    concatenation order. The batches own disjoint word rows, so no OR.
+    count (1,) int32. One sort of the concatenated rows, whatever the
+    number of batches; ties keep the concatenation order. Each batch is a
+    segment of the sort whose valid rows are its count's prefix, so the
+    kernel sorts only those. The batches own disjoint word rows, so no OR.
     """
     dev = batches[0][0].device
     words = torch.cat([b[1] for b in batches])
@@ -98,7 +100,8 @@ def _merge_columns(batches, k, k_budget, w_total):
                         for b in batches])
     keys = pair_keys(words.T, valids)
     keys, perm, valid = sort_keys(
-        keys, None if k <= MAX_SINGLE_KEY_K else valids)
+        keys, None if k <= MAX_SINGLE_KEY_K else valids,
+        segments=[(b[4], b[2]) for b in batches])
     del words, valids
     return merge_columns(keys, perm, valid, [(b[0], b[3]) for b in batches],
                          n_words_for_k(k), k_budget, w_total)

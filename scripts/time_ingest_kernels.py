@@ -6,14 +6,24 @@ batches of 32 padded with 4s to a multiple of 4096 codes as the batched
 builder pads them, budgets of 2^24:
 
 - ``kmer_canon``'s sort key on the first batch (140.9M windows);
-- ``build_columns`` on that batch's sorted windows;
+- ``radix_sort`` on those keys, and on the 11 batches' unions as the
+  merge sorts them (184.5M rows in 11 segments, 96.4M valid), each beside
+  torch.sort of the same keys (``library_ms``), its bytes bound and the
+  bytes of its design's passes (``bound_ms_passes``,
+  ``chip_smoke.sort_pass_bytes``);
+- ``build_columns`` on the batch's sorted windows;
 - ``merge_columns`` on the merge sort of the 11 batches' unions (184.5M
   rows, most of them bucket padding), to the final (11, 2^24) matrix;
 - ``compact_columns`` (the singleton filter) on that merged matrix.
 
 Each kernel is held against its plain version first (exact), and the
-build's ``ptxas`` registers and spills of the ``kmer`` and
-``device_build`` libraries are printed.
+build's ``ptxas`` registers and spills of the ``kmer``, ``sort`` and
+``device_build`` libraries are printed. Last, ``ingest-device``'s batched
+build itself (``build_matrix_device_batched`` as ``chip_smoke.ingest_path``
+calls it, the singleton filter on): its wall three times, each ending in a
+synchronize, then one profiled build's device time, that of every kernel
+whose name holds "sort" (the hand sort's or torch.sort's) and the busy
+share.
 
     python3 scripts/time_ingest_kernels.py [--repo DIR]
 
@@ -22,7 +32,9 @@ are used (default: the one holding this script), so that two versions of
 the kernels compare inside one machine: parent, change, change, parent. A
 checkout whose ``ops/device_build`` has no ``merge_columns`` entry is
 timed the way its own phase 6 timed it: ``merge_ranks``, a zeroed final
-matrix and one ``scatter_batch_columns`` a batch.
+matrix and one ``scatter_batch_columns`` a batch; one whose ``ops/kmer``
+has no ``sort_keys_plain`` sorts with torch.sort (timed by CUDA events
+under the name ``radix_sort``, against itself).
 Prints one JSON line per kernel: device ms per call from torch.profiler
 (the kernel functions' own time), CUDA events around the wrapper beside
 it (output fills and scratch zeroing included), ``bound_ms`` (the bytes
@@ -37,8 +49,8 @@ import json
 import os
 import sys
 
-REPS = {"kmer_canon": 20, "build_columns": 5, "merge_columns": 5,
-        "compact_columns": 20}
+REPS = {"kmer_canon": 20, "radix_sort": 5, "radix_sort:merge": 3,
+        "build_columns": 5, "merge_columns": 5, "compact_columns": 20}
 
 
 def merge_entry(db, keys, perm, batches, nw, k_budget, w_total):
@@ -88,19 +100,56 @@ def main(argv=None):
     from grm_tpu_torch.ops import _build
 
     _build.build_all()
-    for source in ("kmer", "device_build"):
+    for source in ("kmer", "sort", "device_build"):
         for function, regs, spills in cs.ptxas_summary(
                 _build.BUILD_LOG.get(source, "")):
             print(json.dumps({"repo": repo, "source": source,
                               "ptxas": function, "registers": int(regs),
                               "spills": spills}), flush=True)
-    time_rows(cs, torch.device("cuda"), cs.nvidia_smi("name,power.limit"),
-              repo)
+    card = cs.nvidia_smi("name,power.limit")
+    codes_list = time_rows(cs, torch.device("cuda"), card, repo)
+    time_build(cs, codes_list, torch.device("cuda"), card, repo)
     return 0
 
 
+def time_build(cs, codes_list, device, card, repo):
+    """``ingest-device``'s batched build: three walls, then one profiled
+    build's device time (all, the sorts', busy share of its wall)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from grm_tpu_torch.parallel.device_build import build_matrix_device_batched
+
+    def build():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dm = build_matrix_device_batched(
+            codes_list, cs.INGEST_K, k_budget=cs.INGEST_BUDGET,
+            genome_batch=cs.INGEST_BATCH, batch_budget=cs.INGEST_BUDGET,
+            filter_singleton=True, device=device)
+        torch.cuda.synchronize()
+        return time.time() - t0, dm.n_kmers
+
+    walls = [build() for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, n_kmers = build()
+    rows = [(cs._device_us(e) / 1e3, e.key) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and cs._device_us(e) > 0]
+    total = sum(ms for ms, _ in rows)
+    sorts = sum(ms for ms, key in rows if "sort" in key.lower())
+    print(json.dumps({"repo": repo, "build_walls_s": [w for w, _ in walls],
+                      "n_kmers": n_kmers, "profiled_wall_s": wall,
+                      "device_ms": total, "sorts_ms": sorts,
+                      "busy": total / 1e3 / wall, "card": card}),
+          flush=True)
+
+
 def time_rows(cs, device, card, repo):
-    """The four rows, with ``cs`` the checkout's ``chip_smoke`` module."""
+    """The kernel rows, with ``cs`` the checkout's ``chip_smoke`` module;
+    returns the genomes' codes."""
     import torch
 
     from grm_tpu_torch.ops import device_build as db
@@ -118,13 +167,18 @@ def time_rows(cs, device, card, repo):
     codes = codes.to(device)
     n = codes.numel()
 
-    def row(name, kernel, plain, nbytes, shape, **more):
+    def row(name, kernel, plain, nbytes, shape, library=None, **more):
         err = cs.exact_err(kernel(), plain())
         if err != 0.0:
             raise AssertionError("%s differs from its plain version (%r)"
                                  % (name, err))
-        ms, timed_by = cs.device_ms(kernel, REPS[name],
-                                    cs.KERNEL_FUNCTIONS[name])
+        function = cs.KERNEL_FUNCTIONS.get(name.split(":")[0])
+        if function is None:  # a checkout that sorts with torch.sort
+            ms, timed_by = cs.time_cuda(kernel, REPS[name]), "cuda events"
+        else:
+            ms, timed_by = cs.device_ms(kernel, REPS[name], function)
+        if library is not None:
+            more["library_ms"] = cs.time_cuda(library, REPS[name])
         bound = nbytes / cs.HBM_BYTES_PER_S * 1e3
         more = {key: (v / cs.HBM_BYTES_PER_S * 1e3 if key.startswith("bound")
                       else v) for key, v in more.items()}
@@ -139,6 +193,13 @@ def time_rows(cs, device, card, repo):
         "G=%d L=%d k=%d (the sort key)" % (len(batch), n_cols, k))
     keys, _ = km.window_keys(codes, k)
     del codes
+    plain_sort = getattr(km, "sort_keys_plain", km.sort_keys)
+    passes = (cs.sort_pass_bytes(k, n, n) if hasattr(cs, "sort_pass_bytes")
+              else 0)
+    row("radix_sort", lambda: km.sort_keys(keys), lambda: plain_sort(keys),
+        24 * n, "%d int64 keys (one batch)" % n,
+        library=lambda: torch.sort(keys[0], stable=True),
+        bound_ms_passes=passes)
     keys, perm, _ = km.sort_keys(keys)
     nw, bucket = km.n_words_for_k(k), cs.INGEST_BUDGET
     row("build_columns",
@@ -154,13 +215,28 @@ def time_rows(cs, device, card, repo):
     words = torch.cat([b[1] for b in batches])
     valids = torch.cat([torch.arange(bucket, device=device) < b[2]
                         for b in batches])
-    mkeys, mperm, _ = km.sort_keys(km.pair_keys(words.T, valids))
+    mkeys = km.pair_keys(words.T, valids)
     del words, valids
+    r = mkeys.shape[1]
+    valid_rows = sum(int(b[2]) for b in batches)
+    if hasattr(km, "sort_keys_plain"):
+        segments = [(bucket, b[2]) for b in batches]
+        merge_sort = lambda: km.sort_keys(mkeys, segments=segments)
+    else:
+        merge_sort = lambda: km.sort_keys(mkeys)
+    row("radix_sort:merge", merge_sort, lambda: plain_sort(mkeys),
+        24 * valid_rows + 16 * (r - valid_rows),
+        "%d batches x %d union rows, %d valid, by segments"
+        % (len(batches), bucket, valid_rows),
+        library=lambda: torch.sort(mkeys[0], stable=True),
+        bound_ms_all_rows=24 * r,
+        bound_ms_passes=(cs.sort_pass_bytes(k, r, valid_rows)
+                         if hasattr(cs, "sort_pass_bytes") else 0))
+    mkeys, mperm, _ = merge_sort()
     w_total = -(-len(codes_list) // 32)
     kernel, plain = merge_entry(db, mkeys, mperm, batches, nw, bucket,
                                 w_total)
-    r, out_bytes = mkeys.shape[1], 4 * bucket * (nw + w_total) + 4
-    valid_rows = sum(int(b[2]) for b in batches)
+    out_bytes = 4 * bucket * (nw + w_total) + 4
     word_bytes = sum(4 * b[0].shape[0] * int(b[2]) for b in batches)
     row("merge_columns", kernel, plain,
         16 * valid_rows + word_bytes + out_bytes,
@@ -175,6 +251,7 @@ def time_rows(cs, device, card, repo):
         4 * width * live + 4 * bucket * width + 8,
         "W=%d K=%d, %d live columns" % (w_total, bucket, live),
         bound_ms_whole=2 * 4 * bucket * width + 8)
+    return codes_list
 
 
 if __name__ == "__main__":

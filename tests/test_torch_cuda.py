@@ -534,6 +534,21 @@ def test_ingest_merge_three_batches(cuda, k):
     smoke.merge_cases(cuda, np.random.RandomState(k), k, _record)
 
 
+@pytest.mark.parametrize("k", smoke.SORT_CASE_KS)
+def test_sort_kernel(cuda, k):
+    """radix_sort against sort_keys_plain, keys and permutation exactly:
+    a batch's windows at k (a single key to k = 31, pairs with validity
+    past it), the same as copies of one genome (ties), and the union
+    merge's rows by unequal segments with invalid tails."""
+    smoke.sort_case(cuda, np.random.RandomState(k), k, _record)
+
+
+def test_sort_kernel_edges(cuda):
+    """One row; three tiles and a row; every row invalid; segments with no
+    valid row; the all-T k-mer against KEY_INVALID at k = 31 and 32."""
+    smoke.sort_edge_cases(cuda, np.random.RandomState(7), _record)
+
+
 @pytest.fixture(scope="module")
 def create_inputs(tmp_path_factory):
     """Phase 4's creation inputs: its 40 genomes of 200 kbp as FASTA
