@@ -65,14 +65,17 @@ Phases (any failure exits non-zero and prints no result):
    on the card against the same builders through the plain versions on
    the CPU, with and without the singleton filter, at k = 16, 31 and 33,
    at the all-T k-mer of k = 16 and 32, and with a batch bucket that is
-   exactly full. The radix sort (radix_sort) against sort_keys_plain,
-   keys, permutation and validity exactly: beside every sort of the cases
-   above (the merges also by segments), then at k = 1, 5, 21, 31, 32, 33
-   and 63 on 33 rows of 70,001 codes (over 500 of its tiles), the same
-   rows as copies of one genome (long runs of ties), the union merge's
-   rows in six unequal segments (one full, one empty, a count past its
-   rows); one row, three tiles and a row, every row invalid (one key,
-   with validity, two pairs), segments with no valid row, and the all-T
+   exactly full. The hybrid radix sort (radix_sort) against
+   sort_keys_plain and the multiway merge (merge_keys) against
+   merge_keys_plain, keys, permutation and validity exactly: beside every
+   sort of the cases above (each merge's rows also merged by segments,
+   the merge also held to the sort's order), then at k = 1, 5, 21, 31,
+   32, 33 and 63 on 33 rows of 70,001 codes (over 500 of its tiles), the
+   same rows as copies of one genome (long runs of ties), the union
+   merge's rows in six unequal segments (one full, one empty, a count past
+   its rows), merged and sorted; one row, three tiles and a row, every row
+   invalid (one key, with validity, two pairs), segments with no valid
+   row (sorted and merged), and the all-T
    k-mer against KEY_INVALID at k = 31 and 32.
    The streamed matrix's chunk source: its double-buffered uploads from
    pinned memory (8 chunks, two buffers, the current stream kept busy)
@@ -225,8 +228,8 @@ Phases (any failure exits non-zero and prints no result):
    rank with one ``kmer_canon`` and one ``radix_sort`` launch a genome of
    its half; each process's counting, exchange and merge walls, launches
    and peak RSS are printed. ``ingest-device`` must launch radix_sort
-   once a batch and once for the merge (12), and its profile splits the
-   sorts' device time into the batches' and the merge's.
+   once a batch (11) and merge_keys once, and its profile splits the
+   device time of the batches' sorts from the merge's.
 6. The card's measured instruction rates (csrc/bmma_probe.cu): the 1-bit
    tensor-core product (AND + POPC, ``mma.sync`` k256 and k128), scalar
    POPC, the special-function unit and the two together, and whether the
@@ -260,9 +263,10 @@ Phases (any failure exits non-zero and prints no result):
    the merged matrix), each a call of its wrapper by CUDA events with the
    hand kernels' own device time beside it, against the bytes bound
    (build_columns also with its ``ptxas`` registers and spills);
-   radix_sort at one batch and at the merge (by segments), each beside
-   ``torch.sort`` of the same keys (``library_ms``) and the bytes of its
-   design's passes (``bound_ms_passes``). deinterleave_u64 over
+   radix_sort at one batch, at one genome's windows and at the batch's
+   k = 33 keys, merge_keys on the 11 batches' unions, each beside
+   ``torch.sort`` of the same keys (``library_ms``; none at k = 33) and
+   the bytes of its own design (``bound_ms_design``). deinterleave_u64 over
    the whole 342 x 9.6M matrix in one launch against its bytes bound, its
    plain version and ``torch.stack`` of the strided halves
    (``library_ms``); then the load itself, BitMatrix.from_u64 through the
@@ -338,13 +342,13 @@ HOT_CASE_LENGTH, HOT_RUN = 16 * 4096 + 77, 1000
 # and 64 two planes.
 MERGE_CASE_KS = (9, 31, 32, 33, 64)
 MERGE_CASE_SPLITS = ((0, 32, 64, 70), (0, 64, 70))
-# Phase 3's radix sort cases (tests/test_torch_cuda.py takes them too): the
-# windows of SORT_CASE_GENOMES rows of SORT_CASE_LENGTH codes (over 500 of
-# the kernel's tiles of 4096 rows at k <= 31), as ingest_codes makes them
-# and as copies of one genome, at each k (a single key to k = 31, pairs
-# with validity past it); the union merge's rows in SORT_SEGMENTS' segments
-# (rows, valid count: one full, one empty, a count past its rows); then
-# the edges (sort_edge_cases).
+# Phase 3's sort and merge cases (tests/test_torch_cuda.py takes them too):
+# the windows of SORT_CASE_GENOMES rows of SORT_CASE_LENGTH codes (2.3M
+# rows: two MSD levels, many local jobs), as ingest_codes makes them and as
+# copies of one genome, at each k (a single key to k = 31, pairs with
+# validity past it); the union merge's rows in SORT_SEGMENTS' segments
+# (rows, valid count: one full, one empty, a count past its rows), merged
+# and sorted; then the edges (sort_edge_cases).
 SORT_CASE_KS = (1, 5, 21, 31, 32, 33, 63)
 SORT_CASE_GENOMES, SORT_CASE_LENGTH = 33, 70_001
 SORT_SEGMENTS = ((1 << 16, 50_000), (1 << 12, 0), (1 << 16, 1 << 16),
@@ -400,9 +404,12 @@ KERNELS = {
     "deinterleave_u64": ("grm_tpu_torch/csrc/deinterleave.cu",
                          "grm_tpu/ops/popcount.py:69"),
     # An XLA program on the TPU (no pallas_call): the stable lax.sort of a
-    # batch's windows (device_build.py:88), of the union merge's rows
-    # (:182) and of one genome's windows (kmer.py:177).
+    # batch's windows (device_build.py:88) and of one genome's windows
+    # (kmer.py:177); the same sort of the union merge's rows (:182), whose
+    # batches arrive sorted, by the multiway merge.
     "radix_sort": ("grm_tpu_torch/csrc/sort.cu", "grm_tpu/ops/kmer.py:110"),
+    "merge_keys": ("grm_tpu_torch/csrc/sort.cu",
+                   "grm_tpu/parallel/device_build.py:182"),
 }
 # The kernels each main path is built on. learn scm: the exact engine's
 # pass 1 and pass 2; the argmax engine's CV sweep, its winner-block recount,
@@ -431,7 +438,8 @@ PATH_KERNELS = {
     "tree-device-streamed": ("cart_sweep", "cart_exact_tuples",
                              "cart_exact_select"),
     "ingest-device": ("kmer_canon", "radix_sort", "build_columns",
-                      "merge_columns", "compact_columns", "popcount_colsum"),
+                      "merge_keys", "merge_columns", "compact_columns",
+                      "popcount_colsum"),
     "create-contigs": ("kmer_canon", "radix_sort", "deinterleave_u64",
                        "scm_sweep_sbmax", "popcount_colsum_pairs"),
     "build-distributed": ("kmer_canon", "radix_sort"),
@@ -468,8 +476,10 @@ KERNEL_FUNCTIONS = {
     "merge_columns": "merge_columns_tile_kernel",
     "compact_columns": "compact_columns_tile_kernel",
     "deinterleave_u64": "deinterleave_u64_kernel",
-    "radix_sort": ("sort_hist_kernel", "sort_scan_kernel", "sort_pass_kernel",
-                   "sort_tail_kernel"),
+    "radix_sort": ("sort_count_kernel", "sort_scan_kernel",
+                   "sort_scatter_kernel", "sort_local_kernel"),
+    "merge_keys": ("merge_setup_kernel", "merge_corank_kernel",
+                   "merge_tile_kernel"),
 }
 CART_CRITERIA = ("gini", "cross-entropy")
 MAX_LOG_ULPS = 2  # cross-entropy scores: kernel logf against torch.log
@@ -1387,11 +1397,13 @@ def merge_case(parts, k, w_total, budgets, what, record):
     keys = km.pair_keys(words.T, valids)
     valids = None if k <= km.MAX_SINGLE_KEY_K else valids
     ordered = km.sort_keys(keys, valids)
-    want = km.sort_keys_plain(keys, valids)
-    record("radix_sort", ordered, want, what + " merge")
-    record("radix_sort", km.sort_keys(
-        keys, valids, segments=[(p[1].shape[0], p[2]) for p in parts]),
-        want, what + " merge, by segments")
+    record("radix_sort", ordered, km.sort_keys_plain(keys, valids),
+           what + " merge")
+    segments = [(p[1].shape[0], p[2]) for p in parts]
+    merged = km.merge_keys(keys, segments)
+    record("merge_keys", merged, km.merge_keys_plain(keys, segments),
+           what + " merge")
+    record("merge_keys", merged[:2], ordered[:2], what + " merge, as sorted")
     keys, perm, valid = ordered
     batches = [(p[0], p[3]) for p in parts]
     nw = km.n_words_for_k(k)
@@ -1512,19 +1524,20 @@ def ingest_builder_cases(device, rng, record):
     builders(full, 31, "bucket exactly full", batch_budget=1024)
 
 
-def segment_keys(rng, k, segments, device):
+def segment_keys(rng, k, segments, device, pool=None):
     """The union merge's rows in ``segments`` ((rows, valid count) each):
-    a segment's first rows its sorted k-mers, drawn from one pool so that
-    segments share k-mers, the rest invalid. Returns (keys, the validity
-    past k = 31 or None, the segments with their counts as (1,) int32
-    tensors on the device)."""
+    a segment's first rows its sorted k-mers, drawn from one pool (of
+    ``pool`` k-mers, or twice the valid rows) so that segments share
+    k-mers, the rest invalid. Returns (keys, the validity past k = 31 or
+    None, the segments with their counts as (1,) int32 tensors on the
+    device)."""
     import torch
 
     from grm_tpu_torch.ops import kmer as km
 
     nw = km.n_words_for_k(k)
     total = sum(min(c, r) for r, c in segments)
-    pool = rng.randint(0, 2**32, (2 * total + 16, nw),
+    pool = rng.randint(0, 2**32, (pool or 2 * total + 16, nw),
                        dtype=np.uint64).astype(np.uint32)
     if 2 * k % 32:
         pool[:, -1] &= np.uint32((0xFFFFFFFF << (32 - 2 * k % 32))
@@ -1547,11 +1560,12 @@ def segment_keys(rng, k, segments, device):
 
 
 def sort_case(device, rng, k, record):
-    """One of phase 3's radix sort cases at k, the kernel against
+    """One of phase 3's sort cases at k, radix_sort against
     sort_keys_plain: the windows of SORT_CASE_GENOMES rows of
     SORT_CASE_LENGTH codes (ingest_codes), the same as copies of one genome
-    with 20 changes each (every k-mer in every genome: long runs of ties),
-    and the union merge's rows by SORT_SEGMENTS' segments."""
+    with 20 changes each (every k-mer in every genome: long runs of ties);
+    the union merge's rows by SORT_SEGMENTS' segments, merge_keys against
+    merge_keys_plain and radix_sort of the same rows."""
     import torch
 
     from grm_tpu_torch.ops import kmer as km
@@ -1567,15 +1581,39 @@ def sort_case(device, rng, k, record):
                km.sort_keys_plain(keys, valid),
                "k=%d G=%d L=%d%s" % (k, g, n, label))
     keys, valid, segs = segment_keys(rng, k, SORT_SEGMENTS, device)
-    record("radix_sort", km.sort_keys(keys, valid, segments=segs),
-           km.sort_keys_plain(keys, valid),
+    record("merge_keys", km.merge_keys(keys, segs),
+           km.merge_keys_plain(keys, segs),
            "k=%d merge segments %s" % (k, SORT_SEGMENTS))
+    record("radix_sort", km.sort_keys(keys, valid),
+           km.sort_keys_plain(keys, valid),
+           "k=%d the merge's rows %s" % (k, SORT_SEGMENTS))
+
+
+def merge_kernel_cases(device, rng, k, record):
+    """Phase 3's merge cases at k, merge_keys against merge_keys_plain:
+    MAX_SORT_SEGMENTS small segments (most of them empty or without a
+    valid row), one segment, and twelve segments drawing their k-mers from
+    one pool of 1,000 (each k-mer in most segments: ties in segment
+    order) over many tiles."""
+    from grm_tpu_torch.ops import kmer as km
+
+    sizes = rng.randint(0, 300, km.MAX_SORT_SEGMENTS)
+    many = tuple((int(r), int(rng.randint(0, r + 2))) for r in sizes)
+    for segments, what in ((many, "%d segments" % len(many)),
+                           (((1 << 18, 200_001),), "one segment"),
+                           (((1 << 16, 60_000),) * 12, "12 segments")):
+        keys, _, segs = segment_keys(rng, k, segments, device,
+                                     pool=1000 if len(segments) == 12
+                                     else None)
+        record("merge_keys", km.merge_keys(keys, segs),
+               km.merge_keys_plain(keys, segs), "k=%d %s" % (k, what))
 
 
 def sort_edge_cases(device, rng, record):
-    """Phase 3's radix sort edges, the kernel against sort_keys_plain: one
-    row; three tiles and a row; every row invalid (one key, one key with
-    validity, two pairs with validity); segments with no valid row; the
+    """Phase 3's sort edges, radix_sort against sort_keys_plain: one row;
+    three tiles and a row; every row invalid (one key, one key with
+    validity, two pairs with validity); segments with no valid row (merge_keys
+    against merge_keys_plain too); the
     all-T k-mer against KEY_INVALID: at k = 31 a valid key that differs
     from it only below the live bits, at k = 32 a valid key equal to it."""
     import torch
@@ -1585,8 +1623,11 @@ def sort_edge_cases(device, rng, record):
     def check(keys, valid, what, segments=None):
         keys = keys.to(device)
         valid = None if valid is None else valid.to(device)
-        record("radix_sort", km.sort_keys(keys, valid, segments=segments),
+        record("radix_sort", km.sort_keys(keys, valid),
                km.sort_keys_plain(keys, valid), what)
+        if segments is not None:
+            record("merge_keys", km.merge_keys(keys, segments),
+                   km.merge_keys_plain(keys, segments), what)
 
     sign = np.uint64(1 << 63)
     for n in (1, 3 * 4096 + 1):
@@ -1625,10 +1666,10 @@ def check_ingest_kernels(device):
     """Phase 3, ingest: kmer_canon, build_columns, merge_columns and
     compact_columns equal their plain versions exactly on the card at every
     (k, G) of INGEST_CASE_KS x INGEST_CASE_GENOMES (ingest_case), with
-    radix_sort beside them, build_columns over many tiles (hot_kmer_case),
-    merge_columns on unequal batches (merge_cases), the radix sort's own
-    cases (sort_case at SORT_CASE_KS, sort_edge_cases), then the builders
-    (ingest_builder_cases).
+    radix_sort and merge_keys beside them, build_columns over many tiles
+    (hot_kmer_case), merge_columns on unequal batches (merge_cases), the
+    sort's and the merge's own cases (sort_case at SORT_CASE_KS,
+    sort_edge_cases), then the builders (ingest_builder_cases).
     Returns the largest error per kernel (all 0.0)."""
     rng = np.random.RandomState(5)
     worst = {}
@@ -1649,6 +1690,8 @@ def check_ingest_kernels(device):
         merge_cases(device, rng, k, record)
     for k in SORT_CASE_KS:
         sort_case(device, rng, k, record)
+    for k in MERGE_CASE_KS:
+        merge_kernel_cases(device, rng, k, record)
     sort_edge_cases(device, rng, record)
     ingest_builder_cases(device, rng, record)
     return worst
@@ -3052,11 +3095,12 @@ def run_ingest(device, seed, paths):
     if missing:
         raise AssertionError("path 'ingest-device' launched no %s" % missing)
     n_batches = -(-INGEST_GENOMES // INGEST_BATCH)
-    if paths["ingest-device"]["radix_sort"] != n_batches + 1:
-        raise AssertionError("ingest-device: %d radix_sort launches, not one "
-                             "a batch and one for the merge (%d)"
-                             % (paths["ingest-device"]["radix_sort"],
-                                n_batches + 1))
+    got = (paths["ingest-device"]["radix_sort"],
+           paths["ingest-device"]["merge_keys"])
+    if got != (n_batches, 1):
+        raise AssertionError("ingest-device: %d radix_sort and %d merge_keys "
+                             "launches, not one a batch (%d) and one merge"
+                             % (got + (n_batches,)))
     want = (ds.kmer_count, rules)
     union = ds.dm.union_kmers_host()
     matrix = ds.dm.matrix[:, :ds.kmer_count].clone()
@@ -3091,27 +3135,19 @@ def run_ingest(device, seed, paths):
 
 
 def sort_split(prof):
-    """The device ms of the radix sort's kernels in a profiled
-    ``ingest-device`` run: (the batches' sorts, the merge's sort), the
-    merge's being the sort kernels that ran after the last
-    build_columns."""
+    """The device ms in a profiled ``ingest-device`` run of the batches'
+    sorts (radix_sort's kernels) and of the union merge (merge_keys')."""
     from torch.autograd import DeviceType
 
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    last_build = max((e.time_range.start for e in kernels
-                      if _is_function(e.name,
-                                      KERNEL_FUNCTIONS["build_columns"])),
-                     default=float("inf"))
     batch = merge = 0.0
-    for e in kernels:
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
         if _is_function(e.name, KERNEL_FUNCTIONS["radix_sort"]):
-            ms = e.time_range.elapsed_us() / 1e3
-            if e.time_range.start > last_build:
-                merge += ms
-            else:
-                batch += ms
+            batch += ms
+        elif _is_function(e.name, KERNEL_FUNCTIONS["merge_keys"]):
+            merge += ms
     return batch, merge
 
 
@@ -3235,41 +3271,42 @@ def time_load(m64, n_rows, device, paths, card):
     return {"deinterleave_u64": row}
 
 
-def sort_passes(k):
-    """The passes the radix sort runs over ingest keys of k (csrc/sort.cu:
-    digits of kDigitBits from the top of the 64 P + 1 composite bits; a
-    digit below the 2k live bits and the invalid flag skips its pass)."""
-    from grm_tpu_torch.ops.kmer import n_words_for_k
+def sort_design_bytes(n_pairs, rows, with_valid):
+    """The hybrid radix sort's bytes by its design (csrc/sort.cu), two MSD
+    levels: level 1's count (the keys and validity read) and scatter (read
+    again; the keys and a 32-bit payload written), level 2's count (the
+    keys) and scatter (keys and payloads read and written), the local sort
+    (keys and payloads read; the keys, the int64 position and the validity
+    written)."""
+    key, v = 8 * n_pairs, int(bool(with_valid))
+    return rows * ((key + v) + (key + v + key + 4) + key + 2 * (key + 4)
+                   + (key + 4 + key + 8 + v))
 
-    src = open(os.path.join(REPO, "grm_tpu_torch", "csrc", "sort.cu")).read()
-    width = int(re.search(r"constexpr int kDigitBits = (\d+);", src).group(1))
-    top = 64 * -(-n_words_for_k(k) // 2) + 1
-    return sum(1 for hi in range(top, 0, -width) if hi > top - 1 - 2 * k)
 
-
-def sort_pass_bytes(k, rows, sorted_rows):
-    """The radix sort's bytes by its design: per sorted row 8 for the
-    histograms, then a pass each reading and writing the key and a 32-bit
-    payload (the first reads no payload, the last writes an int64
-    position), at one key plane; each other row's key and position
-    written once (the merge's invalid tails)."""
-    return (24 * sort_passes(k) + 8) * sorted_rows + 16 * (rows - sorted_rows)
+def merge_bytes(n_pairs, rows, valid_rows):
+    """The multiway merge's bytes: each valid row's keys read once, every
+    output row's keys, int64 position and validity written once."""
+    return 8 * n_pairs * valid_rows + (8 * n_pairs + 9) * rows
 
 
 def time_ingest_kernels(codes_list, device, paths, card):
-    """Phase 6, ingest: each of the five kernels at phase 5's shapes (one
+    """Phase 6, ingest: each of the six kernels at phase 5's shapes (one
     32-genome batch for kmer_canon, radix_sort and build_columns; every
-    batch's union for radix_sort and merge_columns; the merged matrix for
-    compact_columns), equal to its plain version on the same inputs. ``ms``
-    is one call of the wrapper by CUDA events (its output fills and scratch
-    zeroing included), ``kernel_ms`` the hand kernel's own device time from
-    torch.profiler; ``bound_ms`` the bytes that the call's inputs need read
-    once and its outputs written once, at the memory rate: the merge
-    sort's and merge_columns' valid rows (``bound_ms_all_rows`` counts
-    every row read) and compact_columns' live columns (``bound_ms_whole``:
-    the whole matrix). radix_sort's ``library_ms`` is torch.sort (stable,
-    with indices) of the same keys, and ``bound_ms_passes`` its design's
-    bytes (sort_pass_bytes). Returns the rows."""
+    batch's union for merge_keys and merge_columns; the merged matrix for
+    compact_columns), radix_sort also at one genome's windows (the sort
+    create-contigs runs a genome) and at the batch's k = 33 keys (two
+    planes with validity), each equal to its plain version on the same
+    inputs. ``ms`` is one call of the wrapper by CUDA events (its output
+    fills and scratch zeroing included), ``kernel_ms`` the hand kernels'
+    own device time from torch.profiler; ``bound_ms`` the bytes that the
+    call's inputs need read once and its outputs written once, at the
+    memory rate: the merge's and merge_columns' valid rows
+    (``bound_ms_all_rows`` counts every row read) and compact_columns'
+    live columns (``bound_ms_whole``: the whole matrix). ``library_ms`` of
+    radix_sort and merge_keys is torch.sort (stable, with indices) of the
+    same keys (none at k = 33: no one call sorts two planes), and
+    ``bound_ms_design`` the bytes of their own design (sort_design_bytes,
+    merge_bytes). Returns the rows."""
     import torch
 
     from grm_tpu_torch.ops import device_build as db
@@ -3312,13 +3349,29 @@ def time_ingest_kernels(codes_list, device, paths, card):
         lambda: km.kmer_canon_plain(codes, INGEST_K, key=True),
         n * (1 + 8), 20, shape + " (the sort key)")
     keys, _ = km.window_keys(codes, INGEST_K)
-    del codes
     row("radix_sort", lambda: km.sort_keys(keys),
         lambda: km.sort_keys_plain(keys), 24 * n, 5,
-        "%d int64 keys (one batch), %d passes" % (n, sort_passes(INGEST_K)),
-        keep={"bound_ms_passes": sort_pass_bytes(INGEST_K, n, n)
+        "%d int64 keys (one batch)" % n,
+        keep={"bound_ms_design": sort_design_bytes(1, n, False)
               / HBM_BYTES_PER_S * 1e3},
         library=lambda: torch.sort(keys[0], stable=True))
+    gkeys, _ = km.window_keys(torch.from_numpy(codes_list[0][None]).to(device),
+                              INGEST_K)
+    g = gkeys.shape[1]
+    row("radix_sort:genome", lambda: km.sort_keys(gkeys),
+        lambda: km.sort_keys_plain(gkeys), 24 * g, 20,
+        "%d int64 keys (one genome, as create-contigs sorts it)" % g,
+        keep={"bound_ms_design": sort_design_bytes(1, g, False)
+              / HBM_BYTES_PER_S * 1e3},
+        library=lambda: torch.sort(gkeys[0], stable=True))
+    del gkeys
+    k33, v33 = km.window_keys(codes, 33)
+    row("radix_sort:k33", lambda: km.sort_keys(k33, v33),
+        lambda: km.sort_keys_plain(k33, v33), (2 * 8 + 1 + 2 * 8 + 8 + 1) * n, 3,
+        "%d keys of two int64 planes with validity (one batch, k = 33)" % n,
+        keep={"bound_ms_design": sort_design_bytes(2, n, True)
+              / HBM_BYTES_PER_S * 1e3})
+    del k33, v33, codes
     keys, perm, _ = km.sort_keys(keys)
     bucket = INGEST_BUDGET
     row("build_columns",
@@ -3340,18 +3393,18 @@ def time_ingest_kernels(codes_list, device, paths, card):
     del words, valids
     segments = [(bucket, b[2]) for b in batches]
     sorted_rows = sum(int(b[2]) for b in batches)
-    row("radix_sort:merge", lambda: km.sort_keys(mkeys, segments=segments),
-        lambda: km.sort_keys_plain(mkeys),
-        24 * sorted_rows + 16 * (mkeys.shape[1] - sorted_rows), 3,
-        "%d batches x %d union rows, %d valid, by segments"
-        % (len(batches), bucket, sorted_rows),
-        keep={"bound_ms_all_rows": 24 * mkeys.shape[1] / HBM_BYTES_PER_S
+    r = mkeys.shape[1]
+    row("merge_keys", lambda: km.merge_keys(mkeys, segments),
+        lambda: km.merge_keys_plain(mkeys, segments),
+        merge_bytes(1, r, sorted_rows), 5,
+        "%d batches x %d union rows, %d valid" % (len(batches), bucket,
+                                                  sorted_rows),
+        keep={"bound_ms_all_rows": merge_bytes(1, r, r) / HBM_BYTES_PER_S
               * 1e3,
-              "bound_ms_passes": sort_pass_bytes(INGEST_K, mkeys.shape[1],
-                                                 sorted_rows)
+              "bound_ms_design": merge_bytes(1, r, sorted_rows)
               / HBM_BYTES_PER_S * 1e3},
         library=lambda: torch.sort(mkeys[0], stable=True))
-    mkeys, mperm, _ = km.sort_keys(mkeys, segments=segments)
+    mkeys, mperm, _ = km.merge_keys(mkeys, segments)
     w_total = -(-len(codes_list) // 32)
     merged = [(b[0], b[3] // 32) for b in batches]
     r, out_bytes = mkeys.shape[1], 4 * INGEST_BUDGET * (nw + w_total) + 4

@@ -50,6 +50,7 @@ launches = {
     "compact_columns": 0,
     "deinterleave_u64": 0,
     "radix_sort": 0,
+    "merge_keys": 0,
 }
 # (nodes, criterion) of the latest cart_sweep launches, one entry beside
 # each count: the frontier sizes a path really gave the kernel.

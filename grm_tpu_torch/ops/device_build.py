@@ -250,16 +250,16 @@ def merge_columns(keys, perm, valid, batches, nw, k_budget, w_total):
     """The union merge of genome batches, from the merge sort's rows to the
     final packed matrix.
 
-    ``keys``, ``perm``, ``valid``: the sort of every batch's union rows
-    back to back (:func:`~.kmer.sort_keys`); ``batches``: each batch's
+    ``keys``, ``perm``, ``valid``: the stable sort of every batch's union
+    rows back to back (:func:`~.kmer.merge_keys`); ``batches``: each batch's
     (matrix (wb, bucket) int32, w_off) in that order, its union rows being
     ``bucket`` merge rows and its word rows ``[w_off, w_off + wb)`` of the
     final matrix. Returns (final (w_total, k_budget) int32, with every
     batch's columns at their merged columns; merged union words (k_budget,
     nw) int32, zero past the last; the merged k-mer count (1,) int32).
 
-    The kernel relies on :func:`~.kmer.sort_keys`' order (the valid rows
-    first, so that it reads no padding past one key a tile); the plain
+    The kernel relies on that order (the valid rows first, so that it
+    reads no padding past one key a tile); the plain
     version does not.
     """
     _check_sorted(keys, perm, valid)

@@ -9,9 +9,12 @@ Port of ``grm_tpu/ops/kmer.py``, under the same names:
    :func:`kmer_canon_plain` on a CPU one) gives, for every window start,
    the canonical words (the lexicographic minimum of the forward window and
    its reverse complement, A<C<G<T) and the window's validity;
-3. :func:`sort_keys` (the stable radix sort ``csrc/sort.cu`` on a CUDA
-   tensor, :func:`sort_keys_plain`'s ``torch.sort`` on a CPU one) orders
-   the windows, and run flags give the distinct k-mers and their counts.
+3. :func:`sort_keys` (the stable hybrid radix sort ``csrc/sort.cu`` on a
+   CUDA tensor, :func:`sort_keys_plain`'s ``torch.sort`` on a CPU one)
+   orders the windows, and run flags give the distinct k-mers and their
+   counts; :func:`merge_keys` (the stable multiway merge of the same
+   source) orders rows that come as sorted segments, the union merge's
+   batches.
 
 k-mers are (n, n_words) words, big-endian word order, bases packed
 MSB-first and the last word left-aligned, so numeric order of the unsigned
@@ -53,6 +56,8 @@ __all__ = [
     "run_flags",
     "sort_keys",
     "sort_keys_plain",
+    "merge_keys",
+    "merge_keys_plain",
     "window_keys",
     "unpack_keys",
     "extract_sorted_kmers",
@@ -78,8 +83,9 @@ _SIGNATURES = {
 _SORT_SIGNATURES = {
     "grm_radix_sort_scratch_words": ([_I, _L], _L),
     "grm_radix_sort_work_bytes": ([_I, _L], _L),
-    "grm_radix_sort": ([_P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
-                       _I),
+    "grm_radix_sort": ([_P, _I, _L, _P, _P, _P, _P, _P, _P, _P], _I),
+    "grm_merge_keys_scratch_words": ([_I, _L, _I], _L),
+    "grm_merge_keys": ([_P, _I, _L, _P, _P, _I, _P, _P, _P, _P, _P], _I),
 }
 MAX_SORT_PAIRS = 4  # csrc/sort.cu kMaxPlanes
 MAX_SORT_SEGMENTS = 1024  # csrc/sort.cu kMaxSegments
@@ -223,7 +229,7 @@ def unpack_keys(keys, nw):
     return torch.stack(out)
 
 
-def _check_sort(keys, valid, segments):
+def _check_sort(keys, valid):
     if keys.dtype != torch.int64 or keys.dim() != 2 \
             or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous (n_pairs, n) int64 tensor")
@@ -236,25 +242,13 @@ def _check_sort(keys, valid, segments):
                               or valid.shape != (n,)
                               or valid.device != keys.device):
         raise ValueError("valid must be (n,) bool on the keys' device")
-    if segments is None:
-        return
-    if not 1 <= len(segments) <= MAX_SORT_SEGMENTS:
-        raise ValueError("1 to %d segments a sort" % MAX_SORT_SEGMENTS)
-    if sum(int(rows) for rows, _ in segments) != n:
-        raise ValueError("the segments' rows must add up to the keys' rows")
-    for _, count in segments:
-        if isinstance(count, torch.Tensor) and (
-                count.numel() != 1 or count.device != keys.device
-                or count.dtype not in (torch.int32, torch.int64)):
-            raise ValueError("a segment's valid count must be an int or a "
-                             "(1,) integer tensor on the keys' device")
 
 
 def sort_keys_plain(keys, valid=None):
     """Plain PyTorch version of :func:`sort_keys`: one stable
     ``torch.sort`` per pair, least significant first, plus one by validity
     where ``valid`` is given."""
-    _check_sort(keys, valid, None)
+    _check_sort(keys, valid)
     if keys.shape[0] == 1 and valid is None:
         s, perm = torch.sort(keys[0], stable=True)
         return s[None], perm, None
@@ -268,7 +262,7 @@ def sort_keys_plain(keys, valid=None):
     return keys[:, perm], perm, None if valid is None else valid[perm]
 
 
-def sort_keys(keys, valid=None, segments=None):
+def sort_keys(keys, valid=None):
     """Stable sort of rows by [invalid, key pairs...].
 
     keys: (n_pairs, n) int64 from :func:`pair_keys` or ``kmer_canon``'s
@@ -276,18 +270,11 @@ def sort_keys(keys, valid=None, segments=None):
     mean an invalid row (a single key, k <= 31). Returns (sorted keys, the
     permutation (n,) int64, sorted validity or None).
 
-    ``segments`` (optional): the rows as consecutive segments, ``[(rows,
-    valid count), ...]``, the count an int or a (1,) integer tensor on the
-    keys' device, where the first ``min(count, rows)`` rows of each segment
-    are valid and the rest invalid (``KEY_INVALID`` in every pair, ``valid``
-    False): the union merge's batches. The kernel then reads only the valid
-    rows and writes the invalid ones after them in input order; the result
-    is the same.
-
-    A CUDA tensor launches the stable LSD radix sort of ``csrc/sort.cu``;
-    a CPU tensor takes :func:`sort_keys_plain`.
+    A CUDA tensor launches the stable hybrid radix sort of ``csrc/sort.cu``
+    (two MSD scatters, then each bucket sorted in shared memory); a CPU
+    tensor takes :func:`sort_keys_plain`.
     """
-    _check_sort(keys, valid, segments)
+    _check_sort(keys, valid)
     if keys.device.type != "cuda":
         return sort_keys_plain(keys, valid)
     lib = _build.library("sort", _SORT_SIGNATURES)
@@ -299,17 +286,8 @@ def sort_keys(keys, valid=None, segments=None):
         n, dtype=torch.bool, device=dev)
     if n == 0:
         return out, perm, out_valid
-    seg_start = seg_count = None
-    if segments is not None:
-        rows = np.cumsum([0] + [int(r) for r, _ in segments])
-        seg_start = torch.from_numpy(rows.astype(np.int64)).pin_memory().to(
-            dev, non_blocking=True)
-        seg_count = torch.cat([
-            c.reshape(1).to(torch.int32) if isinstance(c, torch.Tensor)
-            else torch.tensor([int(c)], dtype=torch.int32, device=dev)
-            for _, c in segments])
-    # The status words of the passes' look-back need zeroing; the work
-    # buffers do not.
+    # The plan and the levels' counters need zeroing; the work buffers do
+    # not.
     scratch = torch.zeros(lib.grm_radix_sort_scratch_words(n_pairs, n),
                           dtype=torch.int64, device=dev)
     work = torch.empty(lib.grm_radix_sort_work_bytes(n_pairs, n),
@@ -318,14 +296,108 @@ def sort_keys(keys, valid=None, segments=None):
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         _build.check(lib.grm_radix_sort(
-            keys.data_ptr(), n_pairs, n, ptr(valid), ptr(seg_start),
-            ptr(seg_count),
-            0 if segments is None else len(segments),
-            out.data_ptr(), perm.data_ptr(), ptr(out_valid),
-            work.data_ptr(), scratch.data_ptr(),
+            keys.data_ptr(), n_pairs, n, ptr(valid), out.data_ptr(),
+            perm.data_ptr(), ptr(out_valid), work.data_ptr(),
+            scratch.data_ptr(),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
             "radix_sort")
         _build.launches["radix_sort"] += 1
+    return out, perm, out_valid
+
+
+def _check_merge(keys, segments):
+    _check_sort(keys, None)
+    if not 1 <= len(segments) <= MAX_SORT_SEGMENTS:
+        raise ValueError("1 to %d segments a merge" % MAX_SORT_SEGMENTS)
+    if any(int(rows) < 0 for rows, _ in segments) \
+            or sum(int(rows) for rows, _ in segments) != keys.shape[1]:
+        raise ValueError("the segments' rows must add up to the keys' rows")
+    for _, count in segments:
+        if isinstance(count, torch.Tensor) and (
+                count.numel() != 1 or count.device != keys.device
+                or count.dtype not in (torch.int32, torch.int64)):
+            raise ValueError("a segment's valid count must be an int or a "
+                             "(1,) integer tensor on the keys' device")
+
+
+def _segment_valid(keys, segments):
+    """(n,) bool: row i of segment s is valid where i < its count."""
+    parts = []
+    for rows, count in segments:
+        count = int(count) if not isinstance(count, torch.Tensor) \
+            else count.reshape(())
+        parts.append(torch.arange(int(rows), device=keys.device) < count)
+    return torch.cat(parts)
+
+
+def merge_keys_plain(keys, segments):
+    """Plain PyTorch version of :func:`merge_keys`:
+    :func:`sort_keys_plain` of the concatenation, the validity from the
+    segments' counts. Raises where a segment's valid rows are not sorted
+    or a row past them is not ``KEY_INVALID`` in every pair."""
+    _check_merge(keys, segments)
+    valid = _segment_valid(keys, segments)
+    if bool((keys[:, ~valid] != KEY_INVALID).any()):
+        raise ValueError("a row past its segment's count is not KEY_INVALID")
+    row0 = 0
+    for rows, count in segments:
+        v = max(min(int(count), int(rows)), 1)
+        a, b = keys[:, row0:row0 + v - 1], keys[:, row0 + 1:row0 + v]
+        le = torch.ones(a.shape[1], dtype=torch.bool, device=keys.device)
+        for p in reversed(range(keys.shape[0])):  # lexicographic a <= b
+            le = (a[p] < b[p]) | ((a[p] == b[p]) & le)
+        if not bool(le.all()):
+            raise ValueError("a segment's valid rows are not sorted")
+        row0 += int(rows)
+    return sort_keys_plain(keys, valid)
+
+
+def merge_keys(keys, segments):
+    """Stable sort of rows that come as sorted segments: the union merge.
+
+    keys: (n_pairs, n) int64 (:func:`pair_keys`); ``segments``: the rows as
+    consecutive segments, ``[(rows, valid count), ...]``, the count an int
+    or a (1,) integer tensor on the keys' device (no fetch), where the
+    first ``min(count, rows)`` rows of each segment are valid and sorted
+    and the rest invalid (``KEY_INVALID`` in every pair). Returns what a
+    stable sort by [invalid, key pairs...] of the concatenation returns:
+    (sorted keys, the permutation (n,) int64, sorted validity (n,) bool):
+    the valid rows merged, ties in segment order, then every invalid row
+    in input order.
+
+    A CUDA tensor launches the stable multiway merge of ``csrc/sort.cu``
+    (each valid row read once, every row written once; the inputs are not
+    checked); a CPU tensor takes :func:`merge_keys_plain`.
+    """
+    _check_merge(keys, segments)
+    if keys.device.type != "cuda":
+        return merge_keys_plain(keys, segments)
+    lib = _build.library("sort", _SORT_SIGNATURES)
+    n_pairs, n = keys.shape
+    dev = keys.device
+    out = torch.empty_like(keys)
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
+    out_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, perm, out_valid
+    rows = np.cumsum([0] + [int(r) for r, _ in segments])
+    seg_start = torch.from_numpy(rows.astype(np.int64)).pin_memory().to(
+        dev, non_blocking=True)
+    seg_count = torch.cat([
+        c.reshape(1).to(torch.int32) if isinstance(c, torch.Tensor)
+        else torch.tensor([int(c)], dtype=torch.int32, device=dev)
+        for _, c in segments])
+    scratch = torch.empty(
+        lib.grm_merge_keys_scratch_words(n_pairs, n, len(segments)),
+        dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(lib.grm_merge_keys(
+            keys.data_ptr(), n_pairs, n, seg_start.data_ptr(),
+            seg_count.data_ptr(), len(segments), out.data_ptr(),
+            perm.data_ptr(), out_valid.data_ptr(), scratch.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+            "merge_keys")
+        _build.launches["merge_keys"] += 1
     return out, perm, out_valid
 
 

@@ -18,8 +18,9 @@ Port of ``grm_tpu/parallel/device_build.py``, under the same names:
 
 The batched builder sorts one ``genome_batch`` at a time, keeps each
 batch's union and packed columns on the card, then merges every batch's
-union in one more sort and places each batch's word rows at their merged
-columns (:func:`_merge_columns`: ``grm_tpu``'s ``_merge_ranks`` and
+sorted union in one multiway merge (:func:`~grm_tpu_torch.ops.kmer.
+merge_keys`) and places each batch's word rows at their merged columns
+(:func:`_merge_columns`: ``grm_tpu``'s ``_merge_ranks`` and
 ``_scatter_batch_columns`` in one kernel).
 
 The column axis is padded to ``k_budget``, the caller's bound on the union
@@ -35,8 +36,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.device_build import build_columns, compact_columns, merge_columns
-from ..ops.kmer import (MAX_SINGLE_KEY_K, n_words_for_k, pair_keys,
-                        sort_keys, window_keys)
+from ..ops.kmer import (MAX_SINGLE_KEY_K, merge_keys, n_words_for_k,
+                        pair_keys, sort_keys, window_keys)
 from ..ops.popcount import BitMatrix
 
 __all__ = ["build_matrix_device", "build_matrix_device_batched",
@@ -83,28 +84,27 @@ def _merge_columns(batches, k, k_budget, w_total):
     """One union merge over every batch's union rows back to back, and
     each batch's packed columns placed at their merged columns: the port of
     ``grm_tpu/parallel/device_build.py:158`` ``_merge_ranks`` and of every
-    batch's ``_scatter_batch_columns`` (:207), in one sort and one kernel.
+    batch's ``_scatter_batch_columns`` (:207), in one merge and one kernel.
 
     ``batches``: (matrix (wb, bucket), union words (bucket, nw), n_kmers
     (1,), word row, bucket) each, the union's valid prefix sorted as
     :func:`_build` leaves it. Returns the final matrix (w_total, k_budget)
     int32, the merged union words (k_budget, nw) and the merged k-mer
-    count (1,) int32. One sort of the concatenated rows, whatever the
-    number of batches; ties keep the concatenation order. Each batch is a
-    segment of the sort whose valid rows are its count's prefix, so the
-    kernel sorts only those. The batches own disjoint word rows, so no OR.
+    count (1,) int32. Each batch is a sorted segment of one multiway merge
+    (:func:`~grm_tpu_torch.ops.kmer.merge_keys`), whatever the number of
+    batches; ties keep the concatenation order, as the sort of the
+    concatenation would. The batches own disjoint word rows, so no OR.
     """
     dev = batches[0][0].device
     words = torch.cat([b[1] for b in batches])
     valids = torch.cat([torch.arange(b[4], device=dev) < b[2]
                         for b in batches])
     keys = pair_keys(words.T, valids)
-    keys, perm, valid = sort_keys(
-        keys, None if k <= MAX_SINGLE_KEY_K else valids,
-        segments=[(b[4], b[2]) for b in batches])
     del words, valids
-    return merge_columns(keys, perm, valid, [(b[0], b[3]) for b in batches],
-                         n_words_for_k(k), k_budget, w_total)
+    keys, perm, valid = merge_keys(keys, [(b[4], b[2]) for b in batches])
+    return merge_columns(keys, perm, None if k <= MAX_SINGLE_KEY_K else valid,
+                         [(b[0], b[3]) for b in batches], n_words_for_k(k),
+                         k_budget, w_total)
 
 
 def _compact_singletons(matrix, union, n_kmers):

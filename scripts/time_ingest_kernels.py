@@ -6,11 +6,15 @@ batches of 32 padded with 4s to a multiple of 4096 codes as the batched
 builder pads them, budgets of 2^24:
 
 - ``kmer_canon``'s sort key on the first batch (140.9M windows);
-- ``radix_sort`` on those keys, and on the 11 batches' unions as the
-  merge sorts them (184.5M rows in 11 segments, 96.4M valid), each beside
-  torch.sort of the same keys (``library_ms``), its bytes bound and the
-  bytes of its design's passes (``bound_ms_passes``,
-  ``chip_smoke.sort_pass_bytes``);
+- ``radix_sort`` on those keys, on the first genome's alone (4.4M keys,
+  the sort ``create-contigs`` runs a genome) and on the batch's k = 33
+  keys (two planes with validity); the union merge of the 11 batches'
+  unions (184.5M rows in 11 segments, 96.4M valid) by ``merge_keys``, or
+  by ``radix_sort`` with segments in a checkout without it; each beside
+  torch.sort of the same keys (``library_ms``, none at k = 33), its bytes
+  bound and the bytes of its design (``bound_ms_design``:
+  ``chip_smoke.sort_design_bytes`` and ``merge_bytes``, or the older
+  ``sort_pass_bytes``);
 - ``build_columns`` on the batch's sorted windows;
 - ``merge_columns`` on the merge sort of the 11 batches' unions (184.5M
   rows, most of them bucket padding), to the final (11, 2^24) matrix;
@@ -21,9 +25,9 @@ build's ``ptxas`` registers and spills of the ``kmer``, ``sort`` and
 ``device_build`` libraries are printed. Last, ``ingest-device``'s batched
 build itself (``build_matrix_device_batched`` as ``chip_smoke.ingest_path``
 calls it, the singleton filter on): its wall three times, each ending in a
-synchronize, then one profiled build's device time, that of every kernel
-whose name holds "sort" (the hand sort's or torch.sort's) and the busy
-share.
+synchronize, then one profiled build's device time, that of the sorts
+(every kernel whose name holds "sort", the hand sort's or torch.sort's,
+and the merge's kernels) and the busy share.
 
     python3 scripts/time_ingest_kernels.py [--repo DIR]
 
@@ -49,8 +53,12 @@ import json
 import os
 import sys
 
-REPS = {"kmer_canon": 20, "radix_sort": 5, "radix_sort:merge": 3,
+REPS = {"kmer_canon": 20, "radix_sort": 5, "radix_sort:genome": 20,
+        "radix_sort:k33": 3, "radix_sort:merge": 3, "merge_keys": 5,
         "build_columns": 5, "merge_columns": 5, "compact_columns": 20}
+# The union merge's kernels (named apart from the sort's).
+MERGE_FUNCTIONS = ("merge_setup_kernel", "merge_corank_kernel",
+                   "merge_tile_kernel")
 
 
 def merge_entry(db, keys, perm, batches, nw, k_budget, w_total):
@@ -139,7 +147,9 @@ def time_build(cs, codes_list, device, card, repo):
     rows = [(cs._device_us(e) / 1e3, e.key) for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and cs._device_us(e) > 0]
     total = sum(ms for ms, _ in rows)
-    sorts = sum(ms for ms, key in rows if "sort" in key.lower())
+    sorts = sum(ms for ms, key in rows if "sort" in key.lower()
+                or any(f + "(" in key or f + "<" in key
+                       for f in MERGE_FUNCTIONS))
     print(json.dumps({"repo": repo, "build_walls_s": [w for w, _ in walls],
                       "n_kmers": n_kmers, "profiled_wall_s": wall,
                       "device_ms": total, "sorts_ms": sorts,
@@ -192,14 +202,32 @@ def time_rows(cs, device, card, repo):
         lambda: km.kmer_canon_plain(codes, k, key=True), n * (1 + 8),
         "G=%d L=%d k=%d (the sort key)" % (len(batch), n_cols, k))
     keys, _ = km.window_keys(codes, k)
-    del codes
     plain_sort = getattr(km, "sort_keys_plain", km.sort_keys)
-    passes = (cs.sort_pass_bytes(k, n, n) if hasattr(cs, "sort_pass_bytes")
-              else 0)
+
+    def design(n_pairs, rows, with_valid):
+        if hasattr(cs, "sort_design_bytes"):
+            return cs.sort_design_bytes(n_pairs, rows, with_valid)
+        return cs.sort_pass_bytes(k, rows, rows) \
+            if hasattr(cs, "sort_pass_bytes") else 0
+
     row("radix_sort", lambda: km.sort_keys(keys), lambda: plain_sort(keys),
         24 * n, "%d int64 keys (one batch)" % n,
         library=lambda: torch.sort(keys[0], stable=True),
-        bound_ms_passes=passes)
+        bound_ms_design=design(1, n, False))
+    gkeys, _ = km.window_keys(torch.from_numpy(codes_list[0][None]).to(device),
+                              k)
+    g = gkeys.shape[1]
+    row("radix_sort:genome", lambda: km.sort_keys(gkeys),
+        lambda: plain_sort(gkeys), 24 * g, "%d int64 keys (one genome)" % g,
+        library=lambda: torch.sort(gkeys[0], stable=True),
+        bound_ms_design=design(1, g, False))
+    del gkeys
+    k33, v33 = km.window_keys(codes, 33)
+    row("radix_sort:k33", lambda: km.sort_keys(k33, v33),
+        lambda: plain_sort(k33, v33), 42 * n,
+        "%d keys of two int64 planes with validity (k = 33)" % n,
+        bound_ms_design=design(2, n, True))
+    del k33, v33, codes
     keys, perm, _ = km.sort_keys(keys)
     nw, bucket = km.n_words_for_k(k), cs.INGEST_BUDGET
     row("build_columns",
@@ -219,19 +247,28 @@ def time_rows(cs, device, card, repo):
     del words, valids
     r = mkeys.shape[1]
     valid_rows = sum(int(b[2]) for b in batches)
-    if hasattr(km, "sort_keys_plain"):
-        segments = [(bucket, b[2]) for b in batches]
-        merge_sort = lambda: km.sort_keys(mkeys, segments=segments)
+    segments = [(bucket, b[2]) for b in batches]
+    shape = "%d batches x %d union rows, %d valid" % (len(batches), bucket,
+                                                      valid_rows)
+    if hasattr(km, "merge_keys"):
+        merge_sort = lambda: km.merge_keys(mkeys, segments)
+        row("merge_keys", merge_sort,
+            lambda: km.merge_keys_plain(mkeys, segments),
+            cs.merge_bytes(1, r, valid_rows), shape,
+            library=lambda: torch.sort(mkeys[0], stable=True),
+            bound_ms_all_rows=cs.merge_bytes(1, r, r),
+            bound_ms_design=cs.merge_bytes(1, r, valid_rows))
     else:
-        merge_sort = lambda: km.sort_keys(mkeys)
-    row("radix_sort:merge", merge_sort, lambda: plain_sort(mkeys),
-        24 * valid_rows + 16 * (r - valid_rows),
-        "%d batches x %d union rows, %d valid, by segments"
-        % (len(batches), bucket, valid_rows),
-        library=lambda: torch.sort(mkeys[0], stable=True),
-        bound_ms_all_rows=24 * r,
-        bound_ms_passes=(cs.sort_pass_bytes(k, r, valid_rows)
-                         if hasattr(cs, "sort_pass_bytes") else 0))
+        if hasattr(km, "sort_keys_plain"):
+            merge_sort = lambda: km.sort_keys(mkeys, segments=segments)
+        else:
+            merge_sort = lambda: km.sort_keys(mkeys)
+        row("radix_sort:merge", merge_sort, lambda: plain_sort(mkeys),
+            24 * valid_rows + 16 * (r - valid_rows), shape + ", by segments",
+            library=lambda: torch.sort(mkeys[0], stable=True),
+            bound_ms_all_rows=24 * r,
+            bound_ms_design=(cs.sort_pass_bytes(k, r, valid_rows)
+                             if hasattr(cs, "sort_pass_bytes") else 0))
     mkeys, mperm, _ = merge_sort()
     w_total = -(-len(codes_list) // 32)
     kernel, plain = merge_entry(db, mkeys, mperm, batches, nw, bucket,

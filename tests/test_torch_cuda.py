@@ -539,13 +539,23 @@ def test_sort_kernel(cuda, k):
     """radix_sort against sort_keys_plain, keys and permutation exactly:
     a batch's windows at k (a single key to k = 31, pairs with validity
     past it), the same as copies of one genome (ties), and the union
-    merge's rows by unequal segments with invalid tails."""
+    merge's rows (unequal segments with invalid tails), sorted and merged
+    (merge_keys against merge_keys_plain)."""
     smoke.sort_case(cuda, np.random.RandomState(k), k, _record)
+
+
+@pytest.mark.parametrize("k", smoke.MERGE_CASE_KS)
+def test_merge_kernel(cuda, k):
+    """merge_keys against merge_keys_plain, keys, permutation and validity
+    exactly: the most segments a merge takes, one segment, twelve segments
+    sharing their k-mers (ties in segment order)."""
+    smoke.merge_kernel_cases(cuda, np.random.RandomState(k), k, _record)
 
 
 def test_sort_kernel_edges(cuda):
     """One row; three tiles and a row; every row invalid; segments with no
-    valid row; the all-T k-mer against KEY_INVALID at k = 31 and 32."""
+    valid row (sorted and merged); the all-T k-mer against KEY_INVALID at
+    k = 31 and 32."""
     smoke.sort_edge_cases(cuda, np.random.RandomState(7), _record)
 
 
