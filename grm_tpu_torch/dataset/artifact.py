@@ -28,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.popcount import BitMatrix, StreamingBitMatrix
+from ..profiling import span
 from ..utils import unpack_binary_bytes_from_ints
 
 __all__ = ["GrmDataset", "MemoryArtifact", "MemoryDataset", "as_dataset"]
@@ -276,7 +277,7 @@ class GrmDataset:
 
         gzip-chunked HDF5 matrices inflate on a thread pool (the raw chunks
         are read serially; zlib releases the GIL)."""
-        with self.open() as f:
+        with span("load.read"), self.open() as f:
             ds = f["kmer_matrix"]
             if (self._memory or ds.compression != "gzip" or ds.chunks is None
                     or ds.shape[1] == 0):
@@ -314,23 +315,26 @@ class GrmDataset:
         if bm is None or bm.sharding != sharding:
             self._bit_matrix = None  # free the old matrix before the new one
             del bm
-            if sharding is not None:
-                with self.open() as f:
-                    self._bit_matrix = BitMatrix.from_u64(
-                        f["kmer_matrix"], self.genome_count,
-                        sharding=sharding)
-                return self._bit_matrix
-            m64 = self.kmer_matrix_u64()
-            device_bytes = m64.shape[0] * 2 * m64.shape[1] * 4
-            budget = self._device_memory_budget()
-            if budget is not None and device_bytes > 0.6 * budget:
-                bm = StreamingBitMatrix.from_u64(
-                    m64, self.genome_count, device=self.device)
-            else:
-                bm = BitMatrix.from_u64(
-                    m64, self.genome_count, device=self.device)
-            self._bit_matrix = bm
+            with span("load") as rec:
+                self._bit_matrix = self._load_bit_matrix(sharding, rec)
         return self._bit_matrix
+
+    def _load_bit_matrix(self, sharding, rec):
+        """:meth:`bit_matrix`'s load; ``rec["bytes"]``: the bytes an
+        unsharded load uploads (none where the matrix streams)."""
+        if sharding is not None:
+            with self.open() as f:
+                return BitMatrix.from_u64(f["kmer_matrix"], self.genome_count,
+                                          sharding=sharding)
+        m64 = self.kmer_matrix_u64()
+        device_bytes = m64.shape[0] * 2 * m64.shape[1] * 4
+        budget = self._device_memory_budget()
+        if budget is not None and device_bytes > 0.6 * budget:
+            rec["bytes"] = 0
+            return StreamingBitMatrix.from_u64(
+                m64, self.genome_count, device=self.device)
+        rec["bytes"] = device_bytes
+        return BitMatrix.from_u64(m64, self.genome_count, device=self.device)
 
     def get_matrix_columns(self, columns):
         """Unpacked presence columns (n_genomes, len(columns)) uint8.

@@ -33,6 +33,7 @@ from ...dataset.artifact import as_dataset
 from ...utils import parse_kmer_blacklist
 from ..bounds import cart_bound
 from ...parallel.mesh import check_mesh, mesh_sharding
+from ...profiling import span, spanned
 from ..cart import (
     DecisionTreeClassifier,
     DeferredEquiv,
@@ -107,6 +108,7 @@ def _readdress_tree(tree, rule_new_idx_by_kmer_seq):
     return new_tree
 
 
+@spanned("cart.predict")
 def _predictions(decision_tree, dataset, train_example_idx, test_example_idx,
                  progress_callback=None):
     """Predict by loading only the model's k-mer columns
@@ -351,39 +353,46 @@ def _cv_grow(hps, dataset, split_name, rule_blacklist, engine="host",
     return fold_predictors, master_predictor, jobs
 
 
+@spanned("cart.finish")
 def _cv_finish(hps, dataset, split_name, fold_predictors, master_predictor,
                column_cache=None):
     """CV cost-complexity pruning of grown trees (experiment_cart.py:382-434)."""
     split = dataset.get_split(split_name)
     example_labels = dataset.phenotype.metadata
 
-    master_alphas, master_pruned_trees = prune_tree(master_predictor.decision_tree)
-    fold_alphas, fold_pruned_trees = [], []
-    for predictor in fold_predictors:
-        alphas, trees = prune_tree(predictor.decision_tree)
-        fold_alphas.append(alphas)
-        fold_pruned_trees.append(trees)
+    with span("cart.prune") as rec:
+        master_alphas, master_pruned_trees = prune_tree(
+            master_predictor.decision_tree)
+        fold_alphas, fold_pruned_trees = [], []
+        for predictor in fold_predictors:
+            alphas, trees = prune_tree(predictor.decision_tree)
+            fold_alphas.append(alphas)
+            fold_pruned_trees.append(trees)
+        if rec:
+            rec["trees"] = len(master_pruned_trees) + sum(
+                len(t) for t in fold_pruned_trees)
 
     # Per-fold test risk per alpha interval (experiment_cart.py:392-412).
     # One column fetch per fold family instead of one per pruned tree.
     fold_scores_by_alpha = []
-    for i, fold in enumerate(split.folds):
-        fold_test_idx = fold.test_genome_idx
-        fold_labels = example_labels[fold_test_idx]
-        fold_predict = _family_predictor(fold_pruned_trees[i], dataset,
-                                         column_cache)
-        bro = BetweenDict()
-        for j, t in enumerate(fold_pruned_trees[i]):
-            fold_test_risk = get_binary_metrics(
-                predictions=fold_predict(t, fold_test_idx),
-                answers=fold_labels,
-            )["risk"][0]
-            if j < len(fold_alphas[i]) - 1:
-                key = (fold_alphas[i][j], fold_alphas[i][j + 1])
-            else:
-                key = (fold_alphas[i][j], np.inf)
-            bro[key] = fold_test_risk
-        fold_scores_by_alpha.append(bro)
+    with span("cart.folds"):
+        for i, fold in enumerate(split.folds):
+            fold_test_idx = fold.test_genome_idx
+            fold_labels = example_labels[fold_test_idx]
+            fold_predict = _family_predictor(fold_pruned_trees[i], dataset,
+                                             column_cache)
+            bro = BetweenDict()
+            for j, t in enumerate(fold_pruned_trees[i]):
+                fold_test_risk = get_binary_metrics(
+                    predictions=fold_predict(t, fold_test_idx),
+                    answers=fold_labels,
+                )["risk"][0]
+                if j < len(fold_alphas[i]) - 1:
+                    key = (fold_alphas[i][j], fold_alphas[i][j + 1])
+                else:
+                    key = (fold_alphas[i][j], np.inf)
+                bro[key] = fold_test_risk
+            fold_scores_by_alpha.append(bro)
 
     # Score master prunings at geometric mean alphas (experiment_cart.py:414-431).
     min_score = np.inf
@@ -439,7 +448,8 @@ def _search_batched(hps_list, dataset, split_name, rule_blacklist, grow, finish)
         if classifier.decision_tree is not None:
             all_rules.extend(
                 r.kmer_index for r in classifier.decision_tree.rules)
-    cache = _ColumnCache(dataset, all_rules)
+    with span("cart.finish"):  # the fold scoring's columns, fetched once
+        cache = _ColumnCache(dataset, all_rules)
     for hps, grown in states:
         yield finish(hps, grown, cache)
 
@@ -533,6 +543,7 @@ def train_tree(dataset, split_name, criterion, class_importance, max_depth,
     return best_score, best_hps, best_master_tree
 
 
+@spanned("cart.equiv")
 def _resolve_deferred_equiv(dataset, split_name, tree, rule_blacklist,
                             mesh=None):
     """Replace DeferredEquiv specs on the chosen master's rules with the
@@ -591,6 +602,7 @@ def _find_rule_blacklist(dataset, kmer_blacklist_file, warning_callback):
     return rule_blacklist
 
 
+@spanned("cart.learn")
 def learn_CART(dataset_file, split_name, criterion, max_depth, min_samples_split,
                class_importance, bound_delta=None, bound_max_genome_size=None,
                kmer_blacklist_file=None, parameter_selection="cv", n_cpu=None,

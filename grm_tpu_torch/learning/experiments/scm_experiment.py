@@ -36,6 +36,7 @@ from ...parallel.mesh import check_mesh, mesh_sharding, scm_fit_batch_device
 from ...parallel.scm_device import build_packed_mask, scm_cv_batch_device
 from ...parallel.scm_exact import ExactScmEngine, _make_risk_lookup
 from ...parallel.scm_grid import scm_cv_grid_device
+from ...profiling import span, spanned
 from ...utils import parse_kmer_blacklist
 from ..bounds import scm_bound
 from ..metrics import get_binary_metrics
@@ -51,6 +52,7 @@ def _duplicate_last_element(l, length):
     return l
 
 
+@spanned("scm.predict")
 def _predictions(model, dataset, train_example_idx, test_example_idx,
                  progress_callback=None):
     """Predict by loading only the model's k-mer columns (experiment_scm.py:43-99)."""
@@ -501,6 +503,7 @@ def _cross_validation_device_exact(dataset, split_name, model_types, p_values,
     return best_hp_score, best_hp, full_train
 
 
+@spanned("scm.train")
 def _full_train_device_exact(dataset, split_name, model_type, p, max_rules,
                              max_equiv_rules, rule_blacklist,
                              random_generator, progress_callback, mesh=None,
@@ -743,6 +746,7 @@ def _find_rule_blacklist(dataset, kmer_blacklist_file, warning_callback):
     return rule_blacklist
 
 
+@spanned("scm.learn")
 def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
               max_rules=10, max_equiv_rules=10000, parameter_selection="cv",
               n_cpu=None, random_seed=None, authorized_rules="",
@@ -915,16 +919,17 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
     if parameter_selection == "bound":
         train_metrics["bound"] = best_hp_score
     elif bound_delta is not None and bound_max_genome_size is not None:
-        train_metrics["bound"] = scm_bound(
-            train_predictions=train_predictions,
-            train_answers=train_answers,
-            train_example_idx=train_example_idx,
-            model=model,
-            delta=bound_delta,
-            max_genome_size=bound_max_genome_size,
-            rule_classifications=KmerRuleClassifications(
-                dataset, sharding=mesh_sharding(mesh)),
-        )
+        with span("scm.bound"):
+            train_metrics["bound"] = scm_bound(
+                train_predictions=train_predictions,
+                train_answers=train_answers,
+                train_example_idx=train_example_idx,
+                model=model,
+                delta=bound_delta,
+                max_genome_size=bound_max_genome_size,
+                rule_classifications=KmerRuleClassifications(
+                    dataset, sharding=mesh_sharding(mesh)),
+            )
 
     if len(test_example_idx) > 0:
         test_answers = labels[test_example_idx]
@@ -957,9 +962,11 @@ def learn_SCM(dataset_file, split_name, model_type, p, kmer_blacklist_file=None,
         )
 
     rules = LazyKmerRuleList(dataset)
-    model_equivalent_rules = [
-        [rules[int(i)] for i in equiv_idx] for equiv_idx in equivalent_rules
-    ]
+    with span("scm.rules"):  # the equivalent rules' k-mers
+        model_equivalent_rules = [
+            [rules[int(i)] for i in equiv_idx]
+            for equiv_idx in equivalent_rules
+        ]
 
     return (
         best_hp,

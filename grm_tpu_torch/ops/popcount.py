@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..profiling import span
 from ..utils import build_row_mask, minimum_uint_size, unpack_binary_bytes_from_ints
 from . import _build
 from .stream import ChunkSource, split_u64_into
@@ -183,7 +184,8 @@ def split_u64(m64, n_words, device):
     if not 0 <= w64 <= m64.shape[0]:
         raise ValueError("%d word rows need %d uint64 rows, not %d"
                          % (n_words, w64, m64.shape[0]))
-    out = torch.empty((n_words, k), dtype=torch.int32, device=device)
+    with span("load.stage"):  # the matrix on the device
+        out = torch.empty((n_words, k), dtype=torch.int32, device=device)
     if n_words == 0 or k == 0:
         return out
     ch = min(load_chunk_cols(w64), k)
@@ -193,11 +195,13 @@ def split_u64(m64, n_words, device):
     threads = FILL_THREADS
     pool = (ThreadPoolExecutor(threads) if threads > 1
             and 8 * w64 * k >= 8 << 20 else None)
-    host = [torch.empty(2 * w64 * ch, dtype=torch.int32, pin_memory=cuda)
-            for _ in range(n_bufs)]
+    with span("load.stage"):  # the staging buffers
+        host = [torch.empty(2 * w64 * ch, dtype=torch.int32,
+                            pin_memory=cuda) for _ in range(n_bufs)]
+        if cuda:
+            stage = [torch.empty(2 * w64 * ch, dtype=torch.int32,
+                                 device=device) for _ in range(n_bufs)]
     if cuda:
-        stage = [torch.empty(2 * w64 * ch, dtype=torch.int32, device=device)
-                 for _ in range(n_bufs)]
         compute = torch.cuda.current_stream(device)
         copy = torch.cuda.Stream(device)
         copied = [torch.cuda.Event() for _ in range(n_bufs)]
@@ -207,21 +211,24 @@ def split_u64(m64, n_words, device):
             b, lo = ci % n_bufs, ci * ch
             c = min(ch, k - lo)
             if cuda and ci >= n_bufs:
-                copied[b].synchronize()  # chunk ci - 2's copy left buffer b
+                with span("load.wait"):
+                    copied[b].synchronize()  # chunk ci - 2's copy left b
             raw = host[b][:2 * w64 * c]
-            _fill(raw.numpy().view(np.uint64).reshape(w64, c),
-                  m64[:w64, lo:lo + c], pool, threads)
-            if cuda:
-                with torch.cuda.stream(copy):
-                    if ci >= n_bufs:  # chunk ci - 2's split has read stage b
-                        copy.wait_event(split[b])
-                    stage[b][:raw.numel()].copy_(raw, non_blocking=True)
-                    copied[b].record(copy)
-                compute.wait_event(copied[b])
-                raw = stage[b][:raw.numel()]
-            deinterleave_u64(raw.view(w64, 2 * c), out, lo)
-            if cuda:
-                split[b].record(compute)
+            with span("load.fill", bytes=8 * w64 * c):
+                _fill(raw.numpy().view(np.uint64).reshape(w64, c),
+                      m64[:w64, lo:lo + c], pool, threads)
+            with span("load.enqueue"):  # the chunk's copy and split
+                if cuda:
+                    with torch.cuda.stream(copy):
+                        if ci >= n_bufs:  # chunk ci - 2's split read stage b
+                            copy.wait_event(split[b])
+                        stage[b][:raw.numel()].copy_(raw, non_blocking=True)
+                        copied[b].record(copy)
+                    compute.wait_event(copied[b])
+                    raw = stage[b][:raw.numel()]
+                deinterleave_u64(raw.view(w64, 2 * c), out, lo)
+                if cuda:
+                    split[b].record(compute)
     finally:
         if pool is not None:
             pool.shutdown()

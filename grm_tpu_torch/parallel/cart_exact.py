@@ -84,6 +84,7 @@ from ..ops.cart_exact import (
 )
 from ..ops.cart_sweep import NO_COLUMN, cart_frontier_scores
 from ..ops.popcount import StreamingBitMatrix, masks_to_tensor
+from ..profiling import span
 from .cart_device import _frontier_masks, _per_node_dicts, sharded_data
 from .distributed import all_gather_arrays, all_reduce, check_agreement
 from .mesh import ShardedMatrix, spans_processes
@@ -390,44 +391,45 @@ def _run_tuple_regime(out, t_idx, front, thresh, n_node, crit, classes,
     # tuple is within the float32 margin, so the minimum over this subset is
     # the global minimum (and all its columns passed the filter together:
     # each tuple's occurrence maximum is over all its columns).
-    winners = []
-    equiv_jobs = []  # (node, winning tuple keys, occmax)
-    for i, ni in enumerate(t_idx):
-        lo, hi = bounds[i], bounds[i + 1]
-        if lo == hi:
-            continue
-        tkeys, toccs = keys[lo:hi], occs[lo:hi]
-        lefts = decode_keys(tkeys, n_node[ni])
-        node_counts = {cl: int(n_node[ni, cj])
-                       for cj, cl in enumerate(classes)}
-        left_int = {cl: lefts[cj] for cj, cl in enumerate(classes)}
-        vals = score_candidates_f64(crit, priors_l[ni], totals_l[ni],
-                                    node_counts, left_int)
-        vmin = np.min(vals)
-        if vmin == np.inf:
-            continue
-        tie = vals == vmin
-        if occ_tiebreak[ni]:
-            # The reference's tiebreak, np.isclose(occ, occ.max()): exact
-            # equality for integer occurrences. The winner is the lowest
-            # column at the largest occurrence over the tie set's tuples.
-            occmax = int(toccs[tie].max())
-            winset = tie & (toccs == occmax)
-            wincol = int(coccs[lo:hi][winset].min())
-        else:
-            # The identity tiebreak (fit()'s default): the first candidate,
-            # the lowest column of every minimum-score tuple; occmax -1
-            # disables the occurrence condition of the equivalence pass.
-            occmax = -1
-            winset = tie
-            wincol = int(canys[lo:hi][winset].min())
-        out[ni] = {"winner": wincol, "equiv": None}
-        winners.append(ni)
-        if need_equiv[ni]:
-            if defer_equiv[ni]:
-                out[ni]["equiv_spec"] = (tkeys[winset].copy(), occmax)
+    with span("cart.replay"):
+        winners = []
+        equiv_jobs = []  # (node, winning tuple keys, occmax)
+        for i, ni in enumerate(t_idx):
+            lo, hi = bounds[i], bounds[i + 1]
+            if lo == hi:
+                continue
+            tkeys, toccs = keys[lo:hi], occs[lo:hi]
+            lefts = decode_keys(tkeys, n_node[ni])
+            node_counts = {cl: int(n_node[ni, cj])
+                           for cj, cl in enumerate(classes)}
+            left_int = {cl: lefts[cj] for cj, cl in enumerate(classes)}
+            vals = score_candidates_f64(crit, priors_l[ni], totals_l[ni],
+                                        node_counts, left_int)
+            vmin = np.min(vals)
+            if vmin == np.inf:
+                continue
+            tie = vals == vmin
+            if occ_tiebreak[ni]:
+                # The reference's tiebreak, np.isclose(occ, occ.max()): exact
+                # equality for integer occurrences. The winner is the lowest
+                # column at the largest occurrence over the tie set's tuples.
+                occmax = int(toccs[tie].max())
+                winset = tie & (toccs == occmax)
+                wincol = int(coccs[lo:hi][winset].min())
             else:
-                equiv_jobs.append((ni, tkeys[winset], occmax))
+                # The identity tiebreak (fit()'s default): the first candidate,
+                # the lowest column of every minimum-score tuple; occmax -1
+                # disables the occurrence condition of the equivalence pass.
+                occmax = -1
+                winset = tie
+                wincol = int(canys[lo:hi][winset].min())
+            out[ni] = {"winner": wincol, "equiv": None}
+            winners.append(ni)
+            if need_equiv[ni]:
+                if defer_equiv[ni]:
+                    out[ni]["equiv_spec"] = (tkeys[winset].copy(), occmax)
+                else:
+                    equiv_jobs.append((ni, tkeys[winset], occmax))
 
     if winners:
         # The winners' packed columns in one gather: the tree then skips its

@@ -24,6 +24,7 @@ from collections import defaultdict
 import numpy as np
 
 from ..learning.cart import ColumnFetchRequest, service_frontier_request
+from ..profiling import span, spanned
 from .cart_device import cart_frontier_splits_device
 from .cart_exact import cart_frontier_candidates
 
@@ -41,6 +42,7 @@ def _group_key(request):
             excl_key, request.exact)
 
 
+@spanned("cart.grow")
 def grow_trees_batched(jobs):
     """Grow many CART trees with batched frontier scoring.
 
@@ -63,72 +65,90 @@ def grow_trees_batched(jobs):
 
     live = set(gens)
     while live:
-        requests = {}
-        for t in sorted(live):
-            try:
-                if t in results:
-                    requests[t] = gens[t].send(results.pop(t))
-                else:
-                    requests[t] = next(gens[t])
-            except StopIteration:
-                live.discard(t)
-        if not requests:
-            break
+        with span("cart.round") as rnd:
+            requests = {}
+            with span("cart.advance"):
+                for t in sorted(live):
+                    try:
+                        if t in results:
+                            requests[t] = gens[t].send(results.pop(t))
+                        else:
+                            requests[t] = next(gens[t])
+                    except StopIteration:
+                        live.discard(t)
+            if not requests:
+                break
+            if rnd:
+                rnd["trees"] = len(requests)
 
-        # Winner-column fetches: ONE device gather per provider per round
-        # serves every tree's frontier columns.
-        col_ts = [t for t in sorted(requests)
-                  if isinstance(requests[t], ColumnFetchRequest)]
-        if col_ts:
-            by_provider = defaultdict(list)
-            for t in col_ts:
-                rc = requests[t].rule_classifications
-                # Group by the underlying matrix: every HP combo has its
-                # own KmerRuleClassifications but they share the dataset's
-                # cached bit matrix.
-                by_provider[id(getattr(rc, "bit_matrix", rc))].append(t)
-            for members in by_provider.values():
-                rc = requests[members[0]].rule_classifications
-                spans, cat = [], []
-                for t in members:
-                    lo = len(cat)
-                    cat.extend(np.asarray(requests[t].cols).tolist())
-                    spans.append((t, lo, len(cat)))
-                block = rc.get_columns(np.asarray(cat, dtype=np.int64))
-                for t, lo, hi in spans:
-                    results[t] = block[:, lo:hi]
-            for t in col_ts:
-                del requests[t]
+            # Winner-column fetches: ONE device gather per provider per
+            # round serves every tree's frontier columns.
+            col_ts = [t for t in sorted(requests)
+                      if isinstance(requests[t], ColumnFetchRequest)]
+            if col_ts:
+                with span("cart.fetch"):
+                    _fetch_columns(requests, col_ts, results)
+                for t in col_ts:
+                    del requests[t]
 
-        groups = defaultdict(list)
-        for t in sorted(requests):
-            groups[_group_key(requests[t])].append(t)
+            groups = defaultdict(list)
+            for t in sorted(requests):
+                groups[_group_key(requests[t])].append(t)
+            if rnd:
+                rnd["nodes"] = sum(len(requests[t].node_sets)
+                                   for t in requests)
 
-        for members in groups.values():
-            head = requests[members[0]]
-            node_sets, priors, totals, trains, equivs, occs = (
-                [], [], [], [], [], [])
-            defers, spans = [], []
-            for t in members:
-                req = requests[t]
-                lo = len(node_sets)
-                node_sets.extend(req.node_sets)
-                priors.extend([req.altered_priors] * len(req.node_sets))
-                totals.extend(
-                    [req.total_n_examples_by_class] * len(req.node_sets)
-                )
-                trains.extend([req.train_idx] * len(req.node_sets))
-                equivs.extend([req.need_equiv] * len(req.node_sets))
-                occs.extend([req.occ_tiebreak] * len(req.node_sets))
-                defers.extend([req.defer_equiv] * len(req.node_sets))
-                spans.append((t, lo, len(node_sets)))
-            if len(members) == 1:
-                scored = service_frontier_request(head)
-            else:
-                scored = _service_batched(head, node_sets, priors, totals,
-                                          trains, equivs, occs, defers)
-            for t, lo, hi in spans:
-                results[t] = scored[lo:hi]
+            with span("cart.score"):
+                for members in groups.values():
+                    _score_group(requests, members, results)
+
+
+def _fetch_columns(requests, col_ts, results):
+    """The round's column fetches, ``col_ts`` the trees that asked: one
+    gather per provider, each tree's block into ``results``."""
+    by_provider = defaultdict(list)
+    for t in col_ts:
+        rc = requests[t].rule_classifications
+        # Group by the underlying matrix: every HP combo has its own
+        # KmerRuleClassifications but they share the dataset's cached bit
+        # matrix.
+        by_provider[id(getattr(rc, "bit_matrix", rc))].append(t)
+    for members in by_provider.values():
+        rc = requests[members[0]].rule_classifications
+        spans, cat = [], []
+        for t in members:
+            lo = len(cat)
+            cat.extend(np.asarray(requests[t].cols).tolist())
+            spans.append((t, lo, len(cat)))
+        block = rc.get_columns(np.asarray(cat, dtype=np.int64))
+        for t, lo, hi in spans:
+            results[t] = block[:, lo:hi]
+
+
+def _score_group(requests, members, results):
+    """One device call over the frontiers of the trees ``members``, each
+    tree's scored nodes into ``results``."""
+    head = requests[members[0]]
+    node_sets, priors, totals, trains, equivs, occs = ([], [], [], [], [], [])
+    defers, spans = [], []
+    for t in members:
+        req = requests[t]
+        lo = len(node_sets)
+        node_sets.extend(req.node_sets)
+        priors.extend([req.altered_priors] * len(req.node_sets))
+        totals.extend([req.total_n_examples_by_class] * len(req.node_sets))
+        trains.extend([req.train_idx] * len(req.node_sets))
+        equivs.extend([req.need_equiv] * len(req.node_sets))
+        occs.extend([req.occ_tiebreak] * len(req.node_sets))
+        defers.extend([req.defer_equiv] * len(req.node_sets))
+        spans.append((t, lo, len(node_sets)))
+    if len(members) == 1:
+        scored = service_frontier_request(head)
+    else:
+        scored = _service_batched(head, node_sets, priors, totals, trains,
+                                  equivs, occs, defers)
+    for t, lo, hi in spans:
+        results[t] = scored[lo:hi]
 
 
 def _service_batched(head, node_sets, priors, totals, trains, equivs, occs,

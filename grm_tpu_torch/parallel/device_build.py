@@ -39,6 +39,7 @@ from ..ops.device_build import build_columns, compact_columns, merge_columns
 from ..ops.kmer import (MAX_SINGLE_KEY_K, merge_keys, n_words_for_k,
                         pair_keys, sort_keys, window_keys)
 from ..ops.popcount import BitMatrix
+from ..profiling import span, spanned
 
 __all__ = ["build_matrix_device", "build_matrix_device_batched",
            "DeviceMatrix"]
@@ -120,20 +121,23 @@ def _build_codes(codes_list, k, k_budget, device, filter_singleton=False):
     g = len(codes_list)
     n = max(max(len(c) for c in codes_list), k)
     n = -(-n // _LENGTH_BUCKET) * _LENGTH_BUCKET
-    codes = torch.empty((g, n), dtype=torch.int8,
-                        pin_memory=device.type == "cuda")
-    host = codes.numpy()
-    for i, c in enumerate(codes_list):
-        host[i, :len(c)] = c
-        host[i, len(c):] = 4
-    return _build(codes.to(device, non_blocking=True), k, int(k_budget),
-                  bool(filter_singleton))
+    with span("ingest.pad", genomes=g, bytes=g * n):
+        codes = torch.empty((g, n), dtype=torch.int8,
+                            pin_memory=device.type == "cuda")
+        host = codes.numpy()
+        for i, c in enumerate(codes_list):
+            host[i, :len(c)] = c
+            host[i, len(c):] = 4
+    with span("ingest.batch"):  # the upload and the batch's launches
+        return _build(codes.to(device, non_blocking=True), k, int(k_budget),
+                      bool(filter_singleton))
 
 
 def _windows(codes_list, k):
     return sum(max(len(c) - k + 1, 0) for c in codes_list)
 
 
+@spanned("ingest.build")
 def build_matrix_device_batched(codes_list, k, genome_ids=None, k_budget=None,
                                 genome_batch=32, batch_budget=None,
                                 filter_singleton=False, device=None):
@@ -176,8 +180,10 @@ def build_matrix_device_batched(codes_list, k, genome_ids=None, k_budget=None,
     # Phase 2: one union merge over the batches' unions, each batch's valid
     # rows from its device count, and each batch's packed columns placed at
     # their merged columns.
-    final, union, n_dev = _merge_columns(batches, k, k_budget, w_total)
-    counts = torch.cat([n_dev] + [b[2] for b in batches]).cpu().tolist()
+    with span("ingest.merge"):
+        final, union, n_dev = _merge_columns(batches, k, k_budget, w_total)
+    with span("ingest.counts"):  # the one fetch
+        counts = torch.cat([n_dev] + [b[2] for b in batches]).cpu().tolist()
     n_kmers = counts[0]
     for (_, _, _, lo32, bucket), b_n in zip(batches, counts[1:]):
         if b_n > bucket:
@@ -190,8 +196,9 @@ def build_matrix_device_batched(codes_list, k, genome_ids=None, k_budget=None,
     del batches
 
     if filter_singleton:
-        final, union, n_dev = _compact_singletons(final, union, n_dev)
-        n_kmers = int(n_dev.item())
+        with span("ingest.compact"):
+            final, union, n_dev = _compact_singletons(final, union, n_dev)
+            n_kmers = int(n_dev.item())
     return DeviceMatrix(final, union, n_kmers, k, genome_ids)
 
 

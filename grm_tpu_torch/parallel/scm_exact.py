@@ -62,6 +62,7 @@ import torch
 from ..ops.popcount import (StreamingBitMatrix, masks_to_tensor,
                             popcount_colsum_pairs, popcount_rows)
 from ..ops.scm_sweep import scm_sweep_sbmax
+from ..profiling import span, spanned
 from .distributed import all_gather_arrays, all_reduce, check_agreement
 from .mesh import (ShardedMatrix, _columns, column_shards, shard_limit,
                    spans_processes)
@@ -524,6 +525,7 @@ class ExactScmEngine:
 
     # -- the greedy loop -----------------------------------------------------
 
+    @spanned("scm.fits")
     def run_fits(self, fits, max_rules, collect_ties=False):
         """Greedy SCM for every fit, exact reference selection semantics.
 
@@ -577,50 +579,66 @@ class ExactScmEngine:
         valid = np.zeros(f, bool)
 
         for it in range(max_rules + 1):
-            if valid.any():
-                pos, neg, conj, err_d, n_neg_d, n_pos_d = _apply_and_stats(
-                    self._rule_columns(chosen), pos, neg, conj, tpos_d,
-                    tneg_d, is_disj_d, torch.from_numpy(use_abs).to(dev),
-                    torch.from_numpy(valid).to(dev))
-                err = err_d.cpu().numpy()
-                errors[:, it] = np.where(valid, err, errors[:, it - 1])
-                n_neg = np.where(valid, n_neg_d.cpu().numpy(), n_neg)
-                n_pos = np.where(valid, n_pos_d.cpu().numpy(), n_pos)
-                active = active & (n_neg > 0)
-            elif it > 0:
-                errors[:, it] = errors[:, it - 1]
-            if it == max_rules or not active.any():
-                for jt in range(it + 1, max_rules + 1):
-                    errors[:, jt] = errors[:, jt - 1]
-                break
+            with span("scm.step") as step:
+                if valid.any():
+                    with span("scm.apply"):
+                        pos, neg, conj, err_d, n_neg_d, n_pos_d = (
+                            _apply_and_stats(
+                                self._rule_columns(chosen), pos, neg, conj,
+                                tpos_d, tneg_d, is_disj_d,
+                                torch.from_numpy(use_abs).to(dev),
+                                torch.from_numpy(valid).to(dev)))
+                        err = err_d.cpu().numpy()
+                        errors[:, it] = np.where(valid, err,
+                                                 errors[:, it - 1])
+                        n_neg = np.where(valid, n_neg_d.cpu().numpy(), n_neg)
+                        n_pos = np.where(valid, n_pos_d.cpu().numpy(), n_pos)
+                        active = active & (n_neg > 0)
+                elif it > 0:
+                    errors[:, it] = errors[:, it - 1]
+                if step:
+                    step["fits"] = active.sum()
+                if it == max_rules or not active.any():
+                    for jt in range(it + 1, max_rules + 1):
+                        errors[:, jt] = errors[:, jt - 1]
+                    break
 
-            n_neg_t = torch.from_numpy(n_neg.astype(np.int32)).to(dev)
-            n_pos_t = torch.from_numpy(n_pos.astype(np.int32)).to(dev)
-            sbmax = self._sweep(neg, pos, n_neg_t, n_pos_t, ps_dev)
-            gmax = sbmax.max(dim=1).values.cpu().numpy()
-            if self.spans:  # pass 1's maxima of every process's shards
-                gmax = all_reduce(gmax, "max")
-            gmax64 = gmax.astype(np.float64)
-            thresh = self._thresholds(gmax64, n_neg, n_pos, ps_np, active)
-            pools = self._gather_candidates(sbmax, neg, pos, n_neg_t, n_pos_t,
-                                            ps_dev, thresh, active)
+                with span("scm.sweep"):  # pass 1 and its maxima's download
+                    n_neg_t = torch.from_numpy(n_neg.astype(np.int32)).to(dev)
+                    n_pos_t = torch.from_numpy(n_pos.astype(np.int32)).to(dev)
+                    sbmax = self._sweep(neg, pos, n_neg_t, n_pos_t, ps_dev)
+                    gmax = sbmax.max(dim=1).values.cpu().numpy()
+                    if self.spans:  # pass 1's maxima of every process's shards
+                        gmax = all_reduce(gmax, "max")
+                with span("scm.gather"):  # the thresholds and pass 2
+                    gmax64 = gmax.astype(np.float64)
+                    thresh = self._thresholds(gmax64, n_neg, n_pos, ps_np,
+                                              active)
+                    pools = self._gather_candidates(
+                        sbmax, neg, pos, n_neg_t, n_pos_t, ps_dev, thresh,
+                        active)
 
-            chosen = np.zeros(f, np.int64)
-            use_abs = np.zeros(f, bool)
-            valid = np.zeros(f, bool)
-            for fi in np.where(active)[0]:
-                rule, equiv = self._select_for_fit(
-                    pools.get(int(fi), []), fits[fi], n_neg[fi], n_pos[fi],
-                    ps_np[fi])
-                if rule is None:
-                    active[fi] = False
-                    continue
-                rules[fi, it] = rule
-                chosen[fi] = rule % self.n_kmers
-                use_abs[fi] = rule >= self.n_kmers
-                valid[fi] = True
-                if collect_ties:
-                    ties[fi].append(equiv)
+                chosen = np.zeros(f, np.int64)
+                use_abs = np.zeros(f, bool)
+                valid = np.zeros(f, bool)
+                with span("scm.select") as sel:
+                    if sel:
+                        sel["candidates"] = sum(
+                            len(part[0]) for parts in pools.values()
+                            for part in parts)
+                    for fi in np.where(active)[0]:
+                        rule, equiv = self._select_for_fit(
+                            pools.get(int(fi), []), fits[fi], n_neg[fi],
+                            n_pos[fi], ps_np[fi])
+                        if rule is None:
+                            active[fi] = False
+                            continue
+                        rules[fi, it] = rule
+                        chosen[fi] = rule % self.n_kmers
+                        use_abs[fi] = rule >= self.n_kmers
+                        valid[fi] = True
+                        if collect_ties:
+                            ties[fi].append(equiv)
 
         n_rules = (rules >= 0).sum(axis=1).astype(np.int64)
         n_test = n_tpos + n_tneg

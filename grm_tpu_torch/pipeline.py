@@ -39,6 +39,7 @@ from .parallel.device_build import (build_matrix_device,
                                     build_matrix_device_batched)
 from .parallel.mesh import MeshSharding, check_mesh, scm_fit_batch_device
 from .parallel.scm_device import build_packed_mask
+from .profiling import span, spanned
 from .utils import fasta_to_sequences, unpack_binary_bytes_from_ints
 
 __all__ = ["InMemoryDataset", "DeviceDataset", "train_scm", "PipelineResult"]
@@ -179,7 +180,9 @@ class _DeviceKmerView:
     @property
     def kmers(self):
         if self._kmers is None:
-            self._kmers = self._dm.union_kmers_host()
+            with span("pipeline.decode") as rec:  # the union's download
+                self._kmers = self._dm.union_kmers_host()
+                rec["bytes"] = self._kmers.nbytes
         return self._kmers
 
 
@@ -193,6 +196,7 @@ class PipelineResult:
     test_idx: np.ndarray
 
 
+@spanned("pipeline.fit")
 def train_scm(dataset, model_type="conjunction", p=1.0, max_rules=10,
               train_prop=0.75, random_seed=0, mesh=None):
     """Greedy SCM on the in-memory matrix with the argmax engine's fit.

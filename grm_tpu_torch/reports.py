@@ -13,6 +13,8 @@ import os
 
 import numpy as np
 
+from .profiling import spanned
+
 __all__ = ["write_scm_outputs", "write_cart_outputs", "confusion_matrix_to_str"]
 
 
@@ -96,6 +98,7 @@ def _data_summary(dataset, split_name, split, phenotype_tags):
     return s
 
 
+@spanned("report.write")
 def write_scm_outputs(output_dir, dataset, split_name, config, best_hp,
                       best_hp_score, train_metrics, test_metrics, model,
                       rule_importances, equivalent_rules, classifications,
@@ -197,6 +200,7 @@ def write_scm_outputs(output_dir, dataset, split_name, config, best_hp,
     return report
 
 
+@spanned("report.write")
 def write_cart_outputs(output_dir, dataset, split_name, config, best_hp,
                        best_hp_score, train_metrics, test_metrics, model,
                        rule_importances, equivalent_rules, classifications,
