@@ -23,7 +23,10 @@ Phases (any failure exits non-zero and prints no result):
    at W = 11, K = 1,000,003, C = 1, 2, 10, 12; the pair-batched entry with
    ragged offsets; both scm_sweep epilogues at F = 100 and 128, K ragged and
    K below one block, the published p grid and dyadic p, with and without
-   an exclusion mask; at the largest published genome count (W = 157); and
+   an exclusion mask; at the largest published genome count (W = 157, the
+   deep build), K = 20,001 (the producer's 4-byte copies) and, at F = 120
+   with and without an exclusion mask, K = 20,480 (its 16-byte copies, as
+   at the scm cell's K); and
    fit counts, depths and widths that leave the tensor-core tiles ragged:
    F = 1, 3, 5, 101 and 256, W = 1, 12, 13 and 157, K = 5001 with the limit
    inside it, a 16-column tile banned in both rows.
@@ -251,6 +254,10 @@ Phases (any failure exits non-zero and prints no result):
    (a banned k-mer bans its presence and its absence rule) of 0.1%, 1% and
    20% of the columns at random, and with 1% of the presence rules banned
    alone (the kernel's one-tile path), each equal to its plain version.
+   Both scm_sweep epilogues also at the largest published dataset (the
+   deep build: 5022 genomes, W = 157, K = 11,700,000; F = 120 in
+   superblocks of 8192, the scm cell's launch, and F = 100 in blocks of
+   4096), on random words made on the card.
    The exact CART kernels at the largest frontier ``learn_CART(engine=
    "device")`` gave each (the tuple tables; the equivalence compaction,
    and the gather compaction at the tables' frontier), on a synthetic
@@ -1108,6 +1115,21 @@ def check_kernels(device, n_genomes=342, k=1_000_003):
            "W=157 F=128")
     record("scm_sweep_sbmax", sw.scm_sweep_sbmax(m, *fits, kw, 8192, excl),
            sw.scm_sweep_sbmax_plain(m, *fits, kw, 8192, excl), "W=157 F=128")
+    # The deep build's 16-byte copies (K and the block multiples of 4
+    # columns), at the exact engine's 120 fits: the scm cell's launch.
+    kv = 20_480
+    m = _words(rng, (-(-wide // 32), kv), device)
+    fits = fit_inputs(rng, 120, wide, P_GRID, device)
+    excl = torch.from_numpy((rng.rand(2, kv) < 0.2).astype(np.uint8)
+                            ).to(device)
+    for e in (None, excl):
+        what = "W=157 F=120 K=%d excl=%s" % (kv, e is not None)
+        record("scm_sweep_argmax",
+               sw.scm_sweep_argmax_blocks(m, *fits, kv - 3, sw.BLOCK_K, e),
+               sw.scm_sweep_argmax_blocks_plain(m, *fits, kv - 3, sw.BLOCK_K,
+                                                e), what)
+        record("scm_sweep_sbmax", sw.scm_sweep_sbmax(m, *fits, kv - 3, 8192, e),
+               sw.scm_sweep_sbmax_plain(m, *fits, kv - 3, 8192, e), what)
     # Fit counts, depths and widths that leave the tensor-core kernel's
     # tiles ragged: fits in groups of 4 and passes of 8 to 32 groups (256
     # fits: two passes, or grid rows at W = 157), W = 1, 12, 13 and 157 (128-
@@ -2288,6 +2310,7 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
             4 * w * k + 2 * k + 120 * (8 * w + 12) + 4 * nsb * 120,
             2 * 120 * w * live, 5, "W=%d K=%d F=120 sb=8192 %s" % (w, k, tag),
             key="scm_sweep_sbmax:" + tag)
+    time_deep_sweep(row, rng, device)
     # The argmax CART engine's largest frontier: per-node priors (a forest
     # of fold and master trees), no exclusion mask. Two classes, as on the
     # main path, are scored by look-up; three classes by the direct scores
@@ -2316,6 +2339,41 @@ def time_kernels(bm, popc_per_s, b1_per_s, sfu_per_s, device, paths,
                 key="cart_sweep:" + how + criterion)
     time_exact_kernels(row, rng, matrix, device, exact_sizes, card)
     return rows
+
+
+def time_deep_sweep(row, rng, device, n_genomes=5022, k=11_700_000):
+    """Phase 6's rows of scm_sweep's deep build, through ``row`` of
+    :func:`time_kernels`, over the largest published dataset: the exact
+    engine's 120 fits in superblocks of 8192 (the scm cell's launch) and
+    the argmax CV's 100 fits in blocks of 4096. The matrix is random words
+    made on the card (7.35 GB), freed after."""
+    import torch
+
+    from grm_tpu_torch.ops import scm_sweep as sw
+
+    w = -(-n_genomes // 32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.randint(2**31)))
+    matrix = torch.randint(-2**31, 2**31 - 1, (w, k), dtype=torch.int32,
+                           device=device, generator=gen)
+    fits_ex = fit_inputs(rng, 120, n_genomes, P_GRID, device)
+    nsb = -(-k // 8192)
+    row("scm_sweep_sbmax",
+        lambda: sw.scm_sweep_sbmax(matrix, *fits_ex, k, 8192),
+        lambda: sw.scm_sweep_sbmax_plain(matrix, *fits_ex, k, 8192),
+        4 * w * k + 120 * (8 * w + 12) + 4 * nsb * 120, 2 * 120 * w * k, 5,
+        "W=%d K=%d F=120 sb=8192" % (w, k), key="scm_sweep_sbmax:deep")
+    fits_cv = fit_inputs(rng, 100, n_genomes, P_GRID, device)
+    nb = -(-k // sw.BLOCK_K)
+    row("scm_sweep_argmax",
+        lambda: sw.scm_sweep_argmax_blocks(matrix, *fits_cv, k, sw.BLOCK_K),
+        lambda: sw.scm_sweep_argmax_blocks_plain(matrix, *fits_cv, k,
+                                                 sw.BLOCK_K),
+        4 * w * k + 100 * (8 * w + 12) + 8 * nb * 100, 2 * 100 * w * k, 5,
+        "W=%d K=%d F=100 block=%d" % (w, k, sw.BLOCK_K),
+        key="scm_sweep_argmax:deep")
+    del matrix
+    torch.cuda.empty_cache()
 
 
 def time_exact_kernels(row, rng, matrix, device, exact_sizes, card):

@@ -66,8 +66,45 @@
 // L1/L2), and groups past the shared-memory budget go to grid rows. Tiles
 // with padding or a rule banned alone are taken one at a time with every
 // column tested. A tile whose 16 columns are all past the limit or banned
-// in both rows is not loaded. Past 512 genomes the further A words are
-// loaded per group, 8 groups a pass.
+// in both rows is not loaded. That is the shallow build, up to 512 genomes
+// (16 words).
+//
+// The deep build, past 512 genomes (sweep_deep). There the product's work
+// grows with the depth while the epilogue's does not, so the bound is the
+// b1 product itself: at 5022 genomes (W = 157), K = 11.7M and F = 120 fits,
+// 2.74 ms of BMMA against 2.19 ms for one read of the 7.35 GB matrix. Both
+// bounds hold only if every matrix word is read from device memory once a
+// launch, and if no product waits on a load. So a block holds the B
+// fragments of all its groups in shared memory for the whole launch (one
+// 256-byte k256 fragment a group and step: 150 KB for 30 groups at W =
+// 157), and a producer warp streams the block's columns through a ring of
+// stages in shared memory by cp.async, ahead of 8 consumer warps: a stage
+// is 64 columns x 32 words (4 k256 steps), the column tiles in order and
+// the depth inside each, each stage read from device memory once and
+// released by the consumers through mbarriers. The copies are 16 bytes a
+// lane where K is a multiple of 4 columns, else 4 bytes, so K may be any
+// width. Every consumer warp reads every stage's four 16-column tiles from
+// shared memory and takes its own groups against them: warp w keeps groups
+// w, w + 8, w + 16 and w + 24 of the block in registers, 4 tiles x 4 groups
+// = 16 independent chains of k256 products, so one product's latency hides
+// behind the others and no product waits on device memory or L2; a whole
+// stage's 4 steps are unrolled with no test, so that a step's fragments
+// load during the step before. A stage row stores column c at c ^ (8 (w &
+// 3)), so the fragments' loads (lane 4 g + t reads word t of columns g and
+// g + 8) and the producer's row writes hit 32 banks. A block owns one
+// column block as before and each group one warp, so the extrema need no
+// atomics and no reduction across warps. What bounds it then is issue and
+// latency in the consumers (1 block, 9 warps an SM: the ring and B take
+// 221 KB): the shared-memory traffic, 192 bytes a product, would allow
+// ~75% of the b1 rate, and the matrix streams at a third of its rate
+// (PERF.md has the times). The groups that do not fit one block (past 32
+// groups, or B past what the ring leaves) are split evenly over grid rows,
+// each of which reads the matrix again: as the consumers bound the kernel,
+// a second read costs little (at F = 200, W = 157, two grid rows ran as
+// fast as the same two blocks launched as a thread-block cluster). Whether
+// the launch has an exclusion mask is a template parameter (MASKED) here
+// too: tested at run time, it cost the consumers 6 registers and ~4% at
+// F = 120, W = 157.
 //
 // Plain C interface for ctypes; returns cudaGetLastError().
 
@@ -90,9 +127,22 @@ constexpr int kChunkSteps = 4;  // depth steps of one 16-byte B load
 constexpr int kMagic = 0x4B000000;  // the bits of 2^23 as a float
 constexpr float kMagicF = 8388608.0f;
 constexpr int kPassGroups = 32;  // groups a pass, up to 512 genomes
-constexpr int kDeepGroups = 8;   // groups a pass past 512 genomes
 constexpr int kWideTiles = 4;    // warp tiles of the common case side by side
 constexpr int kWideCols = kWideTiles * kWarpCols;
+
+// The deep build (past 512 genomes).
+constexpr int kDeepWarps = 8;     // consumer warps; one more is the producer
+constexpr int kDeepThreads = (kDeepWarps + 1) * 32;
+constexpr int kWarpGroups = 4;    // groups a consumer warp keeps in registers
+constexpr int kDeepGroups = kDeepWarps * kWarpGroups;  // groups a block
+constexpr int kStageTiles = 4;    // 16-column tiles of a stage
+constexpr int kStageCols = kStageTiles * kWarpCols;    // 64 columns
+constexpr int kStageWords = 32;   // word rows of a stage
+constexpr int kStageSteps = kStageWords / (2 * bmma::kStepWords);  // k256
+constexpr int kStageBytes = kStageWords * kStageCols * 4;
+constexpr int kMaxStages = 8;     // the ring's stages, at most
+constexpr int kMinStages = 2;
+constexpr int kSmemMax = 227 * 1024;
 
 enum Epilogue { kArgmax = 0, kSuperblockMax = 1 };
 
@@ -108,20 +158,42 @@ __host__ __device__ inline int depth_chunks(int n_words) {
   return (depth_steps(n_words) + kChunkSteps - 1) / kChunkSteps;
 }
 
-// Groups a pass keeps in registers: 32, or 8 past one chunk of steps.
-__host__ __device__ inline int pass_groups(int n_words) {
-  return depth_chunks(n_words) > 1 ? kDeepGroups : kPassGroups;
+// k256 steps of the deep build: pairs of k128 steps, the last one maybe
+// half zero.
+__host__ __device__ inline int deep_steps(int n_words) {
+  return (depth_steps(n_words) + 1) / 2;
 }
 
-// Shared memory: the B fragments of the row's groups ([group][chunk][lane],
-// 16 bytes each), the fits' constants (p, n_neg + n_pos, n_neg, n_pos), then
-// the reduction scratch of 8 warps x a pass's groups x 4 fits, twice.
+// A deep block's shared memory for its groups, less the ring: the B
+// fragments ([group][k256 step][lane], 8 bytes each) and the fits'
+// constants (p, n_neg + n_pos, n_neg, n_pos).
+__host__ __device__ inline size_t deep_fixed_bytes(int n_words, int groups) {
+  return (size_t)groups * deep_steps(n_words) * bmma::kLanes * sizeof(uint2) +
+         (size_t)groups * kGroupFits * sizeof(float4);
+}
+
+// The ring's stages: as many as the rest of the shared memory holds, up to
+// kMaxStages; each takes its bytes and two mbarriers (full, empty).
+__host__ __device__ inline int deep_stages(int n_words, int groups) {
+  const long long left =
+      (long long)kSmemMax - (long long)deep_fixed_bytes(n_words, groups);
+  const long long n = left / (kStageBytes + 2 * (long long)sizeof(uint64_t));
+  return (int)(n < kMaxStages ? n : kMaxStages);
+}
+
+// Shared memory. Shallow: the B fragments of the row's groups
+// ([group][chunk][lane], 16 bytes each), the fits' constants, then the
+// reduction scratch of 8 warps x a pass's groups x 4 fits, twice. Deep:
+// deep_fixed_bytes, then the ring's stages and their mbarriers.
 __host__ __device__ inline size_t smem_bytes(int n_words, int groups_per_row) {
+  if (depth_chunks(n_words) > 1)
+    return deep_fixed_bytes(n_words, groups_per_row) +
+           (size_t)deep_stages(n_words, groups_per_row) *
+               (kStageBytes + 2 * sizeof(uint64_t));
   return (size_t)groups_per_row * depth_chunks(n_words) * bmma::kLanes *
              sizeof(uint4) +
          (size_t)groups_per_row * kGroupFits * sizeof(float4) +
-         (size_t)2 * kWarps * pass_groups(n_words) * kGroupFits *
-             sizeof(float);
+         (size_t)2 * kWarps * kPassGroups * kGroupFits * sizeof(float);
 }
 
 // The exclusion mask's bytes of the run of kWideCols columns from c0 on,
@@ -199,8 +271,8 @@ __device__ __forceinline__ void take_column(float& best_a, float& best_b,
 // One warp tile of 16 columns from k0 - g on, for the gp groups of a pass
 // (at most GC), with every column tested: padding, the exclusion mask. The
 // tile is not loaded when all its columns are padding or banned in both
-// rows. DEEP: whether the depth passes one chunk of 4 steps (512 genomes).
-template <int EPI, int GC, bool DEEP>
+// rows. At most 512 genomes: one chunk of 4 steps.
+template <int EPI, int GC>
 __device__ __forceinline__ void sweep_tile(
     float (&best_a)[GC], float (&best_b)[GC],
     const uint32_t* __restrict__ matrix, int n_words, long long n_cols,
@@ -251,25 +323,6 @@ __device__ __forceinline__ void sweep_tile(
     if (n_steps > 1) bmma::mma_and_popc_k128(acc, a0[1], a1[1], b.y);
     if (n_steps > 2) bmma::mma_and_popc_k128(acc, a0[2], a1[2], b.z);
     if (n_steps > 3) bmma::mma_and_popc_k128(acc, a0[3], a1[3], b.w);
-    if (DEEP) {
-      // The further chunks' A words are loaded here, per group, not kept.
-#pragma unroll 1
-      for (int ch = 1; ch < n_chunks; ++ch) {
-        const uint4 bc = b_grp[(size_t)ch * bmma::kLanes];
-        const uint32_t bw[kChunkSteps] = {bc.x, bc.y, bc.z, bc.w};
-#pragma unroll
-        for (int e = 0; e < kChunkSteps; ++e) {
-          const int step = ch * kChunkSteps + e;
-          if (step < n_steps) {
-            const int w = step * bmma::kStepWords + t;
-            const uint32_t* row = matrix + (size_t)w * n_cols;
-            bmma::mma_and_popc_k128(
-                acc, v0 && w < n_words ? __ldg(row + k0) : 0u,
-                v1 && w < n_words ? __ldg(row + k1) : 0u, bw[e]);
-          }
-        }
-      }
-    }
     const float4 fc = fit_pass[j * kGroupFits];
     take_column<EPI>(best_a[j], best_b[j], acc[0], acc[1], fc, ex_p0, ex_a0);
     take_column<EPI>(best_a[j], best_b[j], acc[2], acc[3], fc, ex_p1, ex_a1);
@@ -338,20 +391,24 @@ __device__ __forceinline__ void sweep_wide(
   }
 }
 
-// MASKED: whether the launch has an exclusion mask, so that the common case
-// without one keeps no mask bytes and no copies in registers.
-template <int EPI, bool DEEP, bool MASKED>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-scm_sweep_kernel(const uint32_t* __restrict__ matrix, int n_words,
-                 long long n_cols, long long limit,
-                 const uint32_t* __restrict__ tiles,
-                 const int32_t* __restrict__ n_neg,
-                 const int32_t* __restrict__ n_pos,
-                 const float* __restrict__ ps, int n_fits, int groups_per_row,
-                 const uint8_t* __restrict__ excl, int block_cols,
-                 int n_blocks, float* __restrict__ out_a,
-                 float* __restrict__ out_b) {
-  constexpr int GC = DEEP ? kDeepGroups : kPassGroups;  // groups a pass
+// The kernel's parameters, as every build takes them.
+#define GRM_PARAMS                                                          \
+  const uint32_t *__restrict__ matrix, int n_words, long long n_cols,      \
+      long long limit, const uint32_t *__restrict__ tiles,                 \
+      const int32_t *__restrict__ n_neg, const int32_t *__restrict__ n_pos, \
+      const float *__restrict__ ps, int n_fits, int groups_per_row,        \
+      const uint8_t *__restrict__ excl, int block_cols, int n_blocks,      \
+      float *__restrict__ out_a, float *__restrict__ out_b
+#define GRM_PARAM_NAMES                                                     \
+  matrix, n_words, n_cols, limit, tiles, n_neg, n_pos, ps, n_fits,          \
+      groups_per_row, excl, block_cols, n_blocks, out_a, out_b
+
+// The shallow build (up to 512 genomes). MASKED: whether the launch has an
+// exclusion mask, so that the common case without one keeps no mask bytes
+// and no copies in registers.
+template <int EPI, bool MASKED>
+__device__ __forceinline__ void sweep_shallow(GRM_PARAMS) {
+  constexpr int GC = kPassGroups;  // groups a pass
   constexpr int kSlots = GC * kGroupFits;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_steps = depth_steps(n_words);
@@ -424,7 +481,7 @@ scm_sweep_kernel(const uint32_t* __restrict__ matrix, int n_words,
         load_excl(ex_next, excl, n_cols, c0 + kRunStride, col_hi, lane);
       uint32_t sub = 0;
       int sub_off = 0;
-      if (!DEEP && c0 + kWideCols <= col_hi &&
+      if (c0 + kWideCols <= col_hi &&
           (!MASKED || wide_run(ex, g, sub, sub_off))) {
         if (n_steps <= 3)
           sweep_wide<EPI, GC, 3>(best_a, best_b, matrix, n_words, n_cols,
@@ -437,9 +494,9 @@ scm_sweep_kernel(const uint32_t* __restrict__ matrix, int n_words,
       } else {
 #pragma unroll 1
         for (int u = 0; u < kWideTiles; ++u)
-          sweep_tile<EPI, GC, DEEP>(best_a, best_b, matrix, n_words, n_cols,
-                                    n_steps, n_chunks, c0 + u * kWarpCols + g,
-                                    col_hi, excl, b_pass, fit_pass, gp, t);
+          sweep_tile<EPI, GC>(best_a, best_b, matrix, n_words, n_cols,
+                              n_steps, n_chunks, c0 + u * kWarpCols + g,
+                              col_hi, excl, b_pass, fit_pass, gp, t);
       }
     }
 
@@ -482,11 +539,338 @@ scm_sweep_kernel(const uint32_t* __restrict__ matrix, int n_words,
   }
 }
 
+// The deep build's ring: mbarriers and cp.async, in PTX.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Returns once the phase of the given parity has completed (acquire).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// One arrival (release): this thread's reads of the stage are done.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.shared.b64 state, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// One arrival once every cp.async this thread issued so far has landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst,
+                                          const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* dst,
+                                           const uint32_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The deep build (past 512 genomes; the header's note). Block (x, y) takes
+// column block x and the groups of grid row y. Warp kDeepWarps is the
+// producer; consumer warp w takes the row's groups w + 8 i, i < 4.
+template <int EPI, bool MASKED>
+__device__ __forceinline__ void sweep_deep(GRM_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_steps = depth_steps(n_words);  // k128 steps
+  const int n_s256 = deep_steps(n_words);
+  const int n_chunks = (n_s256 + kStageSteps - 1) / kStageSteps;  // a tile
+  const int n_stages = deep_stages(n_words, groups_per_row);
+  const int blk = blockIdx.x;
+  const int grp_lo = blockIdx.y * groups_per_row;
+  const int ng = min(groups_per_row,
+                     (n_fits + kGroupFits - 1) / kGroupFits - grp_lo);
+  const int n_active = min(kDeepWarps, ng);  // consumer warps with groups
+  uint2* s_b = reinterpret_cast<uint2*>(smem_raw);
+  float4* s_fit = reinterpret_cast<float4*>(
+      s_b + (size_t)groups_per_row * n_s256 * bmma::kLanes);
+  uint32_t* s_ring =
+      reinterpret_cast<uint32_t*>(s_fit + groups_per_row * kGroupFits);
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(
+      s_ring + (size_t)n_stages * (kStageBytes / 4));
+  uint64_t* s_empty = s_full + n_stages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n_stages; ++s) {
+      mbar_init(s_full + s, bmma::kLanes);  // the producer's lanes
+      mbar_init(s_empty + s, n_active * bmma::kLanes);  // the consumers'
+    }
+  }
+  __syncthreads();
+
+  const long long col_lo = (long long)blk * block_cols;
+  const long long col_hi =
+      min(col_lo + (long long)block_cols, min(limit, n_cols));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp == kDeepWarps) {
+    // The producer: the stages of each column tile, the depth in order, each
+    // word row's column c stored at c ^ 8 (w & 3) of its stage row. Rows of
+    // whole 16-byte runs (K and the block a multiple of 4 columns) take
+    // 16-byte copies, a lane 4 columns of one of two rows; others 4-byte
+    // copies, a lane one column. Columns past col_hi and rows past n_words
+    // are not read: their products are masked, or meet zero B.
+    const bool vec = n_cols % 4 == 0 && block_cols % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(matrix) % 16 == 0;
+    const int q = lane & 15;  // 16-byte copies: columns 4 q .. 4 q + 3
+    const int r0 = lane >> 4;  // of rows r0, r0 + 2, ...
+    int slot = 0;
+    uint32_t phase = 0;
+    for (long long c0 = col_lo; c0 < col_hi; c0 += kStageCols) {
+      for (int d = 0; d < n_chunks; ++d) {
+        mbar_wait(s_empty + slot, phase ^ 1u);
+        uint32_t* stage = s_ring + (size_t)slot * (kStageBytes / 4);
+        const int w0 = d * kStageWords;
+        const int rows = min(kStageWords, n_words - w0);
+        if (vec) {
+          if (c0 + 4 * q < col_hi) {
+            const uint32_t* src = matrix + (size_t)(w0 + r0) * n_cols + c0 + 4 * q;
+#pragma unroll 4
+            for (int r = r0; r < rows; r += 2)
+              cp_async16(stage + r * kStageCols + ((4 * q) ^ (8 * (r & 3))),
+                         src + (size_t)(r - r0) * n_cols);
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < kStageCols / 32; ++h) {
+            const long long c = c0 + h * 32 + lane;
+            if (c < col_hi) {
+              const uint32_t* src = matrix + (size_t)w0 * n_cols + c;
+#pragma unroll 4
+              for (int r = 0; r < rows; ++r)
+                cp_async4(stage + r * kStageCols + ((h * 32 + lane) ^ (8 * (r & 3))),
+                          src + (size_t)r * n_cols);
+            }
+          }
+        }
+        cp_async_arrive(s_full + slot);
+        if (++slot == n_stages) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    cp_async_wait_all();
+    return;
+  }
+  // The consumer warps copy the B fragments and the fits' constants while
+  // the producer fills the ring; then they wait for each other alone.
+  // tiles[grp][step][lane] -> word step % 2 of s_b[grp][step / 2][lane],
+  // zero on the half step that pads an odd count.
+  uint32_t* s_bw = reinterpret_cast<uint32_t*>(s_b);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ng * 2 * n_s256 * bmma::kLanes;
+       i += kDeepWarps * 32) {
+    const int ln = i % bmma::kLanes;
+    const int step = (i / bmma::kLanes) % (2 * n_s256);
+    const int grp = i / (bmma::kLanes * 2 * n_s256);
+    s_bw[(((size_t)grp * n_s256 + step / 2) * bmma::kLanes + ln) * 2 +
+         step % 2] =
+        step < n_steps
+            ? tiles[((size_t)(grp_lo + grp) * n_steps + step) * bmma::kLanes +
+                    ln]
+            : 0u;
+  }
+  for (int m = threadIdx.x; m < ng * kGroupFits; m += kDeepWarps * 32) {
+    const int fit = grp_lo * kGroupFits + m;
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (fit < n_fits) {
+      const int nn = n_neg[fit];
+      const int np = n_pos[fit];
+      c = make_float4(ps[fit], __int_as_float(nn + np), (float)nn, (float)np);
+    }
+    s_fit[m] = c;
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"r"(kDeepWarps * 32) : "memory");
+  if (warp >= n_active) return;
+
+  // A consumer: its gw groups; groups past gw repeat the last one's
+  // products, so the chains have no branch, and are not taken.
+  const int g = bmma::frag_index(lane);  // columns g and g + 8 of a tile
+  const int t = bmma::frag_word(lane);   // word of a step; fit of a group
+  const int gw = (ng - warp + kDeepWarps - 1) / kDeepWarps;
+  const uint2* b_warp[kWarpGroups];
+#pragma unroll
+  for (int i = 0; i < kWarpGroups; ++i)
+    b_warp[i] = s_b + (size_t)(warp + kDeepWarps * min(i, gw - 1)) * n_s256 *
+                          bmma::kLanes +
+                lane;
+  float best_a[kWarpGroups];
+  float best_b[kWarpGroups];
+#pragma unroll
+  for (int i = 0; i < kWarpGroups; ++i) {
+    best_a[i] = EPI == kArgmax ? FLT_MAX : -INFINITY;
+    best_b[i] = -FLT_MAX;
+  }
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long c0 = col_lo; c0 < col_hi; c0 += kStageCols) {
+    // The tile's padding and exclusion flags, read before its products:
+    // [tile][column g, g + 8].
+    bool ex_p[kStageTiles][2];
+    bool ex_a[kStageTiles][2];
+#pragma unroll
+    for (int u = 0; u < kStageTiles; ++u) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long k = c0 + u * kWarpCols + h * kHalf + g;
+        const bool pad = k >= col_hi;
+        ex_p[u][h] = pad || (MASKED && excl[k] != 0);
+        ex_a[u][h] = pad || (MASKED && excl[n_cols + k] != 0);
+      }
+    }
+    int acc[kStageTiles][kWarpGroups][4];
+#pragma unroll
+    for (int u = 0; u < kStageTiles; ++u)
+#pragma unroll
+      for (int i = 0; i < kWarpGroups; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][i][e] = kMagic;
+
+    for (int d = 0; d < n_chunks; ++d) {
+      mbar_wait(s_full + slot, phase);
+      const uint32_t* stage = s_ring + (size_t)slot * (kStageBytes / 4);
+      const int s0 = d * kStageSteps;
+      const int ns = min(kStageSteps, n_s256 - s0);
+      // k256 step s of the stage: rows 8 s + t and 8 s + 4 + t (words t
+      // and 4 + t of the step), both stored at column ^ 8 t.
+      auto step = [&](int s) {
+        const uint32_t* r0 = stage + (8 * s + t) * kStageCols;
+        const uint32_t* r1 = r0 + 4 * kStageCols;
+        uint32_t a[kStageTiles][4];
+#pragma unroll
+        for (int u = 0; u < kStageTiles; ++u) {
+          const int col = (u * kWarpCols + g) ^ (8 * t);
+          a[u][0] = r0[col];
+          a[u][1] = r0[col ^ kHalf];
+          a[u][2] = r1[col];
+          a[u][3] = r1[col ^ kHalf];
+        }
+        uint2 b[kWarpGroups];
+#pragma unroll
+        for (int i = 0; i < kWarpGroups; ++i)
+          b[i] = b_warp[i][(size_t)(s0 + s) * bmma::kLanes];
+#pragma unroll
+        for (int i = 0; i < kWarpGroups; ++i)
+#pragma unroll
+          for (int u = 0; u < kStageTiles; ++u)
+            bmma::mma_and_popc_k256(acc[u][i], a[u][0], a[u][1], a[u][2],
+                                    a[u][3], b[i].x, b[i].y);
+      };
+      // A whole stage unrolled with no test, so that the compiler may load
+      // a step's operands during the step before; a partial one in a loop.
+      if (ns == kStageSteps) {
+#pragma unroll
+        for (int s = 0; s < kStageSteps; ++s) step(s);
+      } else {
+        for (int s = 0; s < ns; ++s) step(s);
+      }
+      mbar_arrive(s_empty + slot);
+      if (++slot == n_stages) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWarpGroups; ++i) {
+      if (i < gw) {
+        const float4 fc = s_fit[(warp + kDeepWarps * i) * kGroupFits + t];
+#pragma unroll
+        for (int u = 0; u < kStageTiles; ++u) {
+          take_column<EPI>(best_a[i], best_b[i], acc[u][i][0], acc[u][i][1],
+                           fc, ex_p[u][0], ex_a[u][0]);
+          take_column<EPI>(best_a[i], best_b[i], acc[u][i][2], acc[u][i][3],
+                           fc, ex_p[u][1], ex_a[u][1]);
+        }
+      }
+    }
+  }
+
+  // Lanes with the same t hold the same fit: reduce over g. min and max
+  // are exact, so the order does not matter; each group has one warp.
+#pragma unroll
+  for (int i = 0; i < kWarpGroups; ++i) {
+    if (i < gw) {
+      float a = best_a[i];
+      float b = best_b[i];
+#pragma unroll
+      for (int off = 16; off >= 4; off >>= 1) {
+        const float oa = __shfl_xor_sync(0xffffffffu, a, off);
+        a = EPI == kArgmax ? fminf(a, oa) : fmaxf(a, oa);
+        if (EPI == kArgmax) b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, off));
+      }
+      const int fit = (grp_lo + warp + kDeepWarps * i) * kGroupFits + t;
+      if (g == 0 && fit < n_fits) {
+        if (EPI == kArgmax) {
+          out_a[(size_t)blk * n_fits + fit] = a;
+          out_b[(size_t)blk * n_fits + fit] = b;
+        } else {
+          out_a[(size_t)fit * n_blocks + blk] = a;
+        }
+      }
+    }
+  }
+}
+
+// DEEP: whether the depth passes one chunk of 4 steps (512 genomes).
+// MASKED: whether the launch has an exclusion mask.
+template <int EPI, bool DEEP, bool MASKED>
+__global__ void __launch_bounds__(DEEP ? kDeepThreads : kThreads,
+                                  DEEP ? 1 : kBlocksPerSM)
+    scm_sweep_kernel(GRM_PARAMS) {
+  if constexpr (DEEP)
+    sweep_deep<EPI, MASKED>(GRM_PARAM_NAMES);
+  else
+    sweep_shallow<EPI, MASKED>(GRM_PARAM_NAMES);
+}
+
 template <int EPI, bool DEEP, bool MASKED>
 int launch(const void* matrix, int n_words, long long n_cols, long long limit,
            const void* tiles, const void* n_neg, const void* n_pos,
            const void* ps, int n_fits, int groups_per_row, const void* excl,
            int block_cols, void* out_a, void* out_b, void* stream) {
+  if (DEEP && (groups_per_row < 1 || groups_per_row > kDeepGroups ||
+               deep_stages(n_words, groups_per_row) < kMinStages))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(n_words, groups_per_row);
   const int n_blocks = (int)((n_cols + block_cols - 1) / block_cols);
   const int fits_per_row = groups_per_row * kGroupFits;
@@ -498,7 +882,8 @@ int launch(const void* matrix, int n_words, long long n_cols, long long limit,
     if (e != cudaSuccess) return (int)e;
   }
   scm_sweep_kernel<EPI, DEEP, MASKED>
-      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      <<<grid, DEEP ? kDeepThreads : kThreads, smem,
+         (cudaStream_t)stream>>>(
       (const uint32_t*)matrix, n_words, n_cols, limit, (const uint32_t*)tiles,
       (const int32_t*)n_neg, (const int32_t*)n_pos, (const float*)ps, n_fits,
       groups_per_row, (const uint8_t*)excl, block_cols, n_blocks,
@@ -516,10 +901,14 @@ int launch(const void* matrix, int n_words, long long n_cols, long long limit,
 // 4); word [grp][s][4 * (2 * j + e) + t] is word 4 * s + t of fit 4 * grp +
 // j's neg (e = 0) or pos (e = 1) mask, 0 past the real fits and words.
 // n_neg, n_pos (n_fits,) int32; ps (n_fits,) float32; excl (2, n_cols)
-// bytes (row 0 presence, row 1 absence) or null. A pass keeps 32 groups in
-// registers, 8 past 16 words; grid row y takes groups [y * groups_per_row,
-// (y + 1) * groups_per_row). Counts must stay below 2^23 (n_words < 2^18),
-// and n_blocks > 0, n_fits > 0 are the caller's to check.
+// bytes (row 0 presence, row 1 absence) or null. Grid row y takes groups
+// [y * groups_per_row, (y + 1) * groups_per_row). Up to 16 words a pass
+// keeps 32 groups in registers. Past 16 words a block keeps groups_per_row
+// groups (at most 32, 4 a consumer warp) with their B fragments in shared
+// memory for the whole launch and streams its columns through its ring
+// once. Counts must stay below 2^23
+// (n_words < 2^18), and n_blocks > 0, n_fits > 0 are the caller's to
+// check.
 extern "C" int grm_scm_sweep(int epilogue, const void* matrix, int n_words,
                              long long n_cols, long long limit,
                              const void* tiles, const void* n_neg,
@@ -532,11 +921,14 @@ extern "C" int grm_scm_sweep(int epilogue, const void* matrix, int n_words,
       groups_per_row, excl, block_cols, out_a, out_b, stream
   if (epilogue != kArgmax && epilogue != kSuperblockMax)
     return (int)cudaErrorInvalidValue;
-  // Past 512 genomes every tile takes the one-tile path, which reads the
-  // mask itself.
-  if (depth_chunks(n_words) > 1)
+  // Past 512 genomes (more than one chunk of 4 steps): the deep build.
+  if (depth_chunks(n_words) > 1) {
+    if (excl != nullptr)
+      return epilogue == kArgmax ? launch<kArgmax, true, true>(GRM_ARGS)
+                                 : launch<kSuperblockMax, true, true>(GRM_ARGS);
     return epilogue == kArgmax ? launch<kArgmax, true, false>(GRM_ARGS)
                                : launch<kSuperblockMax, true, false>(GRM_ARGS);
+  }
   if (excl != nullptr)
     return epilogue == kArgmax ? launch<kArgmax, false, true>(GRM_ARGS)
                                : launch<kSuperblockMax, false, true>(GRM_ARGS);

@@ -41,6 +41,7 @@ launches = {
     "popcount_colsum_pairs": 0,
     "scm_sweep_argmax": 0,
     "scm_sweep_sbmax": 0,
+    "scm_sweep_deep": 0,  # either epilogue past 512 genomes (16 words)
     "cart_sweep": 0,
     "cart_exact_tuples": 0,
     "cart_exact_select": 0,

@@ -16,9 +16,15 @@ tensor cores (``csrc/bmma_tile.cuh``), with two epilogues:
 
 The kernel reads the fits' masks as the product's B operand, 4 fits x (neg,
 pos) to a tile, packed in fragment order by ``ops/tiles.py``'s
-``pack_mask_tiles``; :func:`sweep_plan` says how many groups of 4 fits a
-pass keeps in registers (32, or 8 past 512 genomes) and a grid row in
-shared memory.
+``pack_mask_tiles``. It has two builds. Up to 512 genomes (16 words) a
+pass keeps 32 groups of 4 fits in registers and a grid row keeps its
+groups' masks in shared memory. Past 512 genomes (the deep build) a block
+keeps up to 32 groups' masks in shared memory for the whole launch, 4
+groups a consumer warp, and a producer warp streams the block's columns
+through a ring of shared-memory stages by cp.async: each matrix word is
+read from device memory once a launch, and every product takes its
+operands from shared memory. Groups past one block go to grid rows, each
+of which reads the matrix again (:func:`sweep_plan`).
 
 :func:`scm_utility_argmax` adds phase 2 (``pallas_scm_sweep.py:290-336``)
 in torch: the first-occurrence argmin/argmax over blocks, then the winner
@@ -62,49 +68,79 @@ _SIGNATURES = {
         _I),
     "grm_scm_sweep_smem_bytes": ([_I, _I], _L),
 }
-_SMEM_BUDGET = 64 << 10  # groups of fits past it go to grid rows
+_SMEM_BUDGET = 64 << 10  # shallow: groups of fits past it go to grid rows
 _SMEM_MAX = 227 << 10
 _CHUNK_STEPS = 4  # tensor-core steps of one 16-byte load of B
 _PASS_GROUPS = 32  # groups of 4 fits a pass keeps in registers
-_DEEP_GROUPS = 8  # the same past one chunk of steps (512 genomes)
+# The deep build (csrc/scm_sweep.cu's constants of the same names).
+_DEEP_WARPS = 8  # consumer warps of a block
+_WARP_GROUPS = 4  # groups a consumer warp keeps in registers
+_DEEP_GROUPS = _DEEP_WARPS * _WARP_GROUPS  # groups a block, at most
+_STAGE_BYTES = 32 * 64 * 4 + 16  # a ring stage, 32 word rows x 64 columns,
+# and its two mbarriers
+_MAX_STAGES, _MIN_STAGES = 8, 2
 _EPI_ARGMAX, _EPI_SBMAX = 0, 1
 
 
-def _pass_groups(w):
-    """Groups of 4 fits a pass keeps in registers: 32, or 8 past one chunk
-    of steps (the kernel's deep build)."""
-    deep = tile_plan(1, 2, w)[2] > _CHUNK_STEPS
-    return _DEEP_GROUPS if deep else _PASS_GROUPS
+def _deep(w):
+    """Whether w words take the deep build: more than one chunk of 4
+    steps (512 genomes)."""
+    return tile_plan(1, 2, w)[2] > _CHUNK_STEPS
+
+
+def _deep_group_bytes(w):
+    """A deep block's shared memory for one group: its B fragments (8 bytes
+    a lane and k256 step) and its 4 fits' constants (16 bytes each)."""
+    s256 = -(-tile_plan(1, 2, w)[2] // 2)
+    return 8 * TILE_LANES * s256 + 16 * TILE_NODES
 
 
 def _smem_bytes(w, groups_per_row):
-    """Shared memory of one block of ``csrc/scm_sweep.cu``: the B fragments
-    of its groups (16 bytes a lane and 4 steps), 16 bytes of constants a
-    fit, and the reduction scratch of 8 warps x the pass's fit slots."""
+    """Shared memory of one block of ``csrc/scm_sweep.cu``. Shallow: the B
+    fragments of its groups (16 bytes a lane and 4 steps), 16 bytes of
+    constants a fit, and the reduction scratch of 8 warps x the pass's fit
+    slots. Deep: the groups' B fragments and constants, then as many ring
+    stages as the rest holds, up to 8."""
+    if _deep(w):
+        fixed = groups_per_row * _deep_group_bytes(w)
+        return fixed + _STAGE_BYTES * min(
+            _MAX_STAGES, (_SMEM_MAX - fixed) // _STAGE_BYTES)
     chunks = -(-tile_plan(1, 2, w)[2] // _CHUNK_STEPS)
     return (16 * TILE_LANES * groups_per_row * chunks
             + 16 * TILE_NODES * groups_per_row
-            + 2 * 4 * 8 * TILE_NODES * _pass_groups(w))
+            + 2 * 4 * 8 * TILE_NODES * _PASS_GROUPS)
 
 
 def sweep_plan(f, w):
-    """How f fits over w words go to the kernel: (groups of 4 fits a pass
-    keeps in registers, groups per grid row, shared-memory bytes of a
-    block). A row's groups fit the shared-memory budget and take as many
-    passes as they need. The shared-memory limit keeps w under ~7,000
-    words, so every count stays far below the 2^23 that the kernel's float
+    """How f fits over w words go to the kernel: (groups of 4 fits a block
+    keeps, grid rows, shared-memory bytes of a block).
+
+    Each grid row reads the matrix again. Up to 16 words: a pass keeps 32
+    groups in registers, and the groups of a grid row fit a 64 KB budget
+    and take as many passes as they need. Past 16 words (the deep build): a
+    block keeps at most 32 groups, 4 a consumer warp, their masks beside a
+    ring of at least two stages, and the groups are spread evenly over the
+    fewest grid rows. The shared-memory limit keeps w under ~6,700 words,
+    so every count stays far below the 2^23 that the kernel's float
     conversion needs."""
     groups = tile_plan(f, 2, w)[0]
-    gpr = groups
-    while gpr > 1 and _smem_bytes(w, gpr) > _SMEM_BUDGET:
-        gpr = -(-gpr // 2)
-    smem = _smem_bytes(w, gpr)
-    if smem > _SMEM_MAX:
+    if _deep(w):
+        cap = min(_DEEP_GROUPS, (_SMEM_MAX - _MIN_STAGES * _STAGE_BYTES)
+                  // _deep_group_bytes(w))
+        gpr = 0
+        if cap:  # the fewest rows, the groups spread evenly over them
+            gpr = -(-groups // -(-groups // cap))
+    else:
+        gpr = groups
+        while gpr > 1 and _smem_bytes(w, gpr) > _SMEM_BUDGET:
+            gpr = -(-gpr // 2)
+    if gpr < 1 or _smem_bytes(w, gpr) > _SMEM_MAX:
         raise ValueError("%d words of fit masks do not fit one block's "
                          "shared memory" % w)
-    if -(-groups // gpr) > 65535:
+    rows = -(-groups // gpr)
+    if rows > 65535:
         raise ValueError("too many fits for one launch")
-    return _pass_groups(w), gpr, smem
+    return gpr, rows, _smem_bytes(w, gpr)
 
 
 def _check_fits(matrix, neg, pos, n_neg, n_pos, ps, excl):
@@ -130,7 +166,7 @@ def _launch(epi, matrix, neg, pos, n_neg, n_pos, ps, limit, block, excl,
             out_a, out_b):
     w, k = matrix.shape
     f = neg.shape[0]
-    _, gpr, smem = sweep_plan(f, w)
+    gpr, _, smem = sweep_plan(f, w)
     lib = _build.library("scm_sweep", _SIGNATURES)
     if lib.grm_scm_sweep_smem_bytes(w, gpr) != smem:
         raise RuntimeError("scm_sweep: the kernel's shared-memory layout is "
@@ -214,6 +250,8 @@ def scm_sweep_argmax_blocks(matrix, neg, pos, n_neg, n_pos, ps, limit,
         _launch(_EPI_ARGMAX, matrix, neg, pos, n_neg, n_pos, ps, limit, block,
                 excl, minp, maxa)
         _build.launches["scm_sweep_argmax"] += 1
+        if _deep(matrix.shape[0]):
+            _build.launches["scm_sweep_deep"] += 1
     return minp, maxa
 
 
@@ -265,6 +303,8 @@ def scm_sweep_sbmax(matrix, neg, pos, n_neg, n_pos, ps, limit, sb,
         _launch(_EPI_SBMAX, matrix, neg, pos, n_neg, n_pos, ps, limit, sb,
                 excl, out, None)
         _build.launches["scm_sweep_sbmax"] += 1
+        if _deep(matrix.shape[0]):
+            _build.launches["scm_sweep_deep"] += 1
     return out
 
 

@@ -156,7 +156,8 @@ def test_kernels_at_the_largest_genome_count(cuda):
 
 # Fit counts, depths and widths that leave the tensor-core kernel's tiles
 # ragged: fits in groups of 4 and passes of 32 groups (256 fits: two
-# passes; at W = 157 passes of 8 groups and grid rows), depth in 128-bit steps and chunks of
+# passes; at W = 157 the deep build, 256 fits over two grid rows),
+# depth in 128-bit steps and chunks of
 # 4 steps (W = 1, 12, 13, 157), 16 columns a warp (K = 5001 is a multiple
 # of neither 16 nor the block), limit < K, a column that every example has
 # and one that none has, and an exclusion mask that bans whole 16-column
@@ -216,6 +217,86 @@ def test_scm_sweep_kernels_under_a_kmer_blacklist(cuda, f, n_genomes, share):
     _same(got[1], want[1])
     _same(sw.scm_sweep_sbmax(matrix, *fits, limit, 8192, ex),
           sw.scm_sweep_sbmax_plain(matrix, *fits, limit, 8192, ex))
+
+
+# The deep build (past 512 genomes): depths that leave a partial stage of
+# 32 words or half a k256 step (W = 17, 33), whole stages (32), the largest
+# published dataset (157) and 10,000 genomes (313); fit counts that leave
+# warps idle (1, 5), fill one block (120) or spread over grid rows (200).
+# K = 20001 takes the producer's 4-byte copies, 20480 its 16-byte ones.
+DEEP_CASES = [(w, f, k) for w in (17, 32, 33, 157, 313) for f in (1, 5, 120, 200)
+              for k in (20001, 20480)]
+
+
+@pytest.mark.parametrize("w,f,k", DEEP_CASES)
+def test_scm_sweep_deep_build(cuda, w, f, k):
+    """Both epilogues, with and without a k-mer blacklist (rules banned
+    alone, a whole stage's columns banned), blocks of 256 and 4096 columns
+    and superblocks of 256 and 8192, the limit inside a tile: the deep
+    build equals the plain versions bit for bit, and each launch counts
+    once as ``scm_sweep_deep``."""
+    from grm_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(31 * w + f + k)
+    matrix = _words(rng, (w, k))
+    matrix[:, 7] = -1
+    matrix[:, 8] = 0
+    matrix = matrix.to(cuda)
+    fits = [t.to(cuda) for t in _fits(rng, f, w, 32 * w - 5, False)]
+    excl = (rng.rand(2, k) < 0.2).astype(np.uint8)
+    excl[0, rng.rand(k) < 0.01] = 1
+    excl[:, 4096 + 64:4096 + 128] = 1
+    limit = k - 37
+    before = _build.launches["scm_sweep_deep"]
+    for ex in (None, torch.from_numpy(excl).to(cuda)):
+        for block in (256, 4096):
+            got = sw.scm_sweep_argmax_blocks(matrix, *fits, limit, block, ex)
+            want = sw.scm_sweep_argmax_blocks_plain(matrix, *fits, limit,
+                                                    block, ex)
+            _same(got[0], want[0])
+            _same(got[1], want[1])
+        for sb in (256, 8192):
+            _same(sw.scm_sweep_sbmax(matrix, *fits, limit, sb, ex),
+                  sw.scm_sweep_sbmax_plain(matrix, *fits, limit, sb, ex))
+    assert _build.launches["scm_sweep_deep"] - before == 8
+
+
+@pytest.mark.parametrize("excl_on", [False, True])
+def test_scm_sweep_deep_build_at_a_streamed_chunks_width(cuda, excl_on):
+    """The streamed exact engine sweeps one chunk a launch: 5022 genomes x
+    120 fits over a chunk of 2^16 columns whose last 1,000 lie past the
+    k-mers (the last chunk's padding)."""
+    rng = np.random.RandomState(16 + excl_on)
+    w, k = 157, 1 << 16
+    matrix = _words(rng, (w, k)).to(cuda)
+    fits = [t.to(cuda) for t in _fits(rng, 120, w, 5022, False)]
+    ex = None
+    if excl_on:
+        ex = torch.from_numpy((rng.rand(2, k) < 0.01).astype(np.uint8))
+        ex = ex.to(cuda)
+    _same(sw.scm_sweep_sbmax(matrix, *fits, k - 1000, 8192, ex),
+          sw.scm_sweep_sbmax_plain(matrix, *fits, k - 1000, 8192, ex))
+
+
+def test_scm_sweep_deep_launches_only_past_16_words(cuda):
+    """``launches["scm_sweep_deep"]`` counts the deep build alone: the
+    shallow builds (16 words and fewer) never touch it."""
+    from grm_tpu_torch.ops import _build
+
+    rng = np.random.RandomState(3)
+    k = 5001
+    for w, deep in ((1, 0), (11, 0), (16, 0), (17, 2)):
+        matrix = _words(rng, (w, k)).to(cuda)
+        fits = [t.to(cuda) for t in _fits(rng, 9, w, 32 * w - 3, False)]
+        before = dict(_build.launches)
+        sw.scm_sweep_sbmax(matrix, *fits, k, 2048)
+        sw.scm_sweep_argmax_blocks(matrix, *fits, k, 4096)
+        assert _build.launches["scm_sweep_deep"] - \
+            before["scm_sweep_deep"] == deep
+        assert _build.launches["scm_sweep_sbmax"] - \
+            before["scm_sweep_sbmax"] == 1
+        assert _build.launches["scm_sweep_argmax"] - \
+            before["scm_sweep_argmax"] == 1
 
 
 def _frontier(rng, n, c, n_genomes, per_node):

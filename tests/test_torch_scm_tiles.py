@@ -10,6 +10,12 @@ of ``mma.m16n8k128 ... and.popc``, fragment by fragment as
 exactly, for fit counts and depths that leave ragged tiles, and the
 emulated epilogues must give the plain versions' block results bit for bit.
 
+Past 512 genomes the kernel's deep build stages the matrix through a ring
+in shared memory: ``_deep_counts`` emulates it, stage by stage as the
+producer warp writes them (the swizzled rows, the columns it does not
+write left as garbage), the consumer warps' fragment reads and k256
+products, their groups, and the grid rows.
+
 These are checks of layout and plans, not of parity with ``grm_tpu``: they
 hold the port against itself. Parity rests on a chain of three: the plain
 PyTorch version against ``grm_tpu`` (``tests/test_torch_ops.py``,
@@ -17,6 +23,9 @@ PyTorch version against ``grm_tpu`` (``tests/test_torch_ops.py``,
 a GPU (``tests/test_torch_cuda.py``), and this file for what the kernel is
 handed.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +40,12 @@ WORDS = [1, 4, 5, 11, 12, 13, 157]
 K = 45  # two whole 16-column warp tiles and a ragged third
 MAGIC = 0x4B000000  # the accumulators' start: the bits of 2^23 as a float
 CHUNK = 4  # steps of one 16-byte load of B
+SOURCE = Path(sw.__file__).resolve().parent.parent / "csrc" / "scm_sweep.cu"
+# The deep build's constants (csrc/scm_sweep.cu; test_deep_emulation_
+# mirrors_the_source holds them to it).
+DEEP_WARPS, WARP_GROUPS = 8, 4
+STAGE_TILES, STAGE_WORDS = 4, 32
+STAGE_COLS = 16 * STAGE_TILES
 
 
 def _words(shape, seed):
@@ -173,17 +188,116 @@ def test_count_as_float_is_exact_below_two_to_the_23():
     assert np.array_equal(got, n.astype(np.float32))
 
 
+def _deep_s_b(packed):
+    """The deep build's shared-memory copy of the packed tiles: [group]
+    [k256 step][lane][e] = the lane's word of k128 step 2 s + e, zero on
+    the half step that pads an odd count."""
+    groups, pairs, steps, lanes = packed.shape
+    assert pairs == 1 and lanes == tiles.TILE_LANES
+    s256 = -(-steps // 2)
+    s_b = np.zeros((groups, 2 * s256, lanes), np.uint32)
+    s_b[:, :steps] = packed[:, 0].numpy().view(np.uint32)
+    return s_b.reshape(groups, s256, 2, lanes).transpose(0, 1, 3, 2)
+
+
+def _stage(matrix, c0, d, col_hi, rng):
+    """Ring stage d of the column tile from c0 on, as the producer warp
+    leaves it: word row 32 d + r of column c0 + c at [r, c ^ 8 (r & 3)],
+    for the rows below W and the columns below col_hi only; the rest holds
+    whatever an earlier stage left (random words here)."""
+    w = matrix.shape[0]
+    stage = rng.randint(0, 2**32, size=(STAGE_WORDS, STAGE_COLS),
+                        dtype=np.uint64).astype(np.uint32)
+    rows = np.arange(min(STAGE_WORDS, w - d * STAGE_WORDS))
+    cols = np.arange(min(STAGE_COLS, col_hi - c0))
+    stage[rows[:, None], cols[None, :] ^ (8 * (rows[:, None] & 3))] = \
+        matrix[d * STAGE_WORDS + rows[:, None], c0 + cols[None, :]]
+    return stage
+
+
+def _fragments(stage, s):
+    """The A fragments of k256 step s of a stage for the 4 tiles, (4, 32,
+    4): lane 4 g + t reads rows 8 s + t (a0, a1) and 8 s + 4 + t (a2, a3)
+    at columns (16 u + g) ^ 8 t (a0, a2) and that ^ 8 (a1, a3)."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    col = (16 * np.arange(STAGE_TILES)[:, None] + g[None, :]) ^ (8 * t)
+    r0, r1 = 8 * s + t, 8 * s + 4 + t
+    return np.stack([stage[r0, col], stage[r0, col ^ 8],
+                     stage[r1, col], stage[r1, col ^ 8]], -1)
+
+
+def _deep_counts(matrix, packed, f, limit, block, seed=0):
+    """(cn, cp) (F, K) as the deep build counts them, -1 past each block's
+    last live column (padding, never taken): blocks of ``block`` columns,
+    the groups spread over grid rows (``sw.sweep_plan``) and each row's
+    over its consumer warps (warp w: groups w + 8 i; a warp
+    short of 4 repeats its last group's products), the column tiles of 64
+    staged 32 word rows at a time, 4 k256 products a stage for each of the
+    warp's 16 chains of (tile, group), accumulators from MAGIC."""
+    rng = np.random.RandomState(seed)
+    matrix = matrix.numpy().view(np.uint32)
+    w, k = matrix.shape
+    s_b = _deep_s_b(packed)
+    groups, s256 = s_b.shape[:2]
+    chunks = -(-s256 // (STAGE_WORDS // 8))
+    gpr, rows, _ = sw.sweep_plan(f, w)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    counts = np.full((2, groups * tiles.TILE_NODES, k), -1.0, np.float32)
+    for blk in range(-(-k // block)):
+        col_lo = blk * block
+        col_hi = min(col_lo + block, limit, k)
+        for row in range(rows):
+            grp_lo = row * gpr
+            ng = min(gpr, groups - grp_lo)
+            assert ng > 0
+            for c0 in range(col_lo, col_hi, STAGE_COLS):
+                stages = [_stage(matrix, c0, d, col_hi, rng)
+                          for d in range(chunks)]
+                for warp in range(min(DEEP_WARPS, ng)):
+                    gw = -(-(ng - warp) // DEEP_WARPS)
+                    mine = [grp_lo + warp + DEEP_WARPS * min(i, gw - 1)
+                            for i in range(WARP_GROUPS)]
+                    acc = np.full((WARP_GROUPS, STAGE_TILES, 32, 4), MAGIC,
+                                  np.int64)
+                    for d, stage in enumerate(stages):
+                        for s in range(min(STAGE_WORDS // 8,
+                                           s256 - d * STAGE_WORDS // 8)):
+                            a = _fragments(stage, s)
+                            for i, grp in enumerate(mine):
+                                acc[i] = _mma_and_popc_k256(
+                                    acc[i], a,
+                                    s_b[grp, d * STAGE_WORDS // 8 + s])
+                    as_float = (acc.astype(np.uint32).view(np.float32)
+                                - np.float32(2**23))
+                    for i in range(gw):
+                        fit = tiles.TILE_NODES * mine[i] + t
+                        for u in range(STAGE_TILES):
+                            for h in range(2):
+                                col = c0 + 16 * u + 8 * h + g
+                                live = col < col_hi
+                                for e in range(2):
+                                    counts[e, fit[live], col[live]] = \
+                                        as_float[i, u, live, 2 * h + e]
+    return counts[0, :f], counts[1, :f]
+
+
 def _kernel_blocks(epi, matrix, neg, pos, n_neg, n_pos, ps, limit, block,
-                   excl):
+                   excl, deep=False):
     """The kernel's epilogue and reductions in numpy float32, over counts
-    from the tile emulation: per (fit, column) the utilities in the kernel's
-    order, a min or max taken only where the column is neither padding nor
-    excluded (and, for the argmax epilogue, not zero-covering: an integer
-    test on cn + cp), then the extrema of each block."""
+    from the tile emulation (``deep``: the deep build's): per (fit, column)
+    the utilities in the kernel's order, a min or max taken only where the
+    column is neither padding nor excluded (and, for the argmax epilogue,
+    not zero-covering: an integer test on cn + cp), then the extrema of
+    each block."""
     f, w = neg.shape
     k = matrix.shape[1]
     packed = tiles.pack_mask_tiles(torch.stack([neg, pos], 1))
-    cn, cp = _tile_counts(matrix, packed, f)
+    if deep:
+        cn, cp = _deep_counts(matrix, packed, f, limit, block)
+    else:
+        cn, cp = _tile_counts(matrix, packed, f)
     p = ps.numpy()[:, None]
     sum_ = (cn.astype(np.int64) + cp.astype(np.int64))
     pad = np.arange(k)[None, :] >= limit
@@ -304,25 +418,146 @@ def test_banned_columns_read_as_copies_leave_the_blocks_unchanged(epi, share,
 
 def test_sweep_plan_at_the_main_paths_shapes():
     # 100 and 120 fits over 342 genomes: one grid row, one pass.
-    assert sw.sweep_plan(100, 11) == (32, 25, 25 * (512 + 64) + 32 * 256)
-    assert sw.sweep_plan(120, 11) == (32, 30, 30 * (512 + 64) + 32 * 256)
+    assert sw.sweep_plan(100, 11) == (25, 1, 25 * (512 + 64) + 32 * 256)
+    assert sw.sweep_plan(120, 11) == (30, 1, 30 * (512 + 64) + 32 * 256)
     # A few fits: one row, the pass's 32 slots mostly empty.
-    assert sw.sweep_plan(1, 1) == (32, 1, 1 * (512 + 64) + 32 * 256)
-    assert sw.sweep_plan(40, 11)[:2] == (32, 10)
+    assert sw.sweep_plan(1, 1) == (1, 1, 1 * (512 + 64) + 32 * 256)
+    assert sw.sweep_plan(40, 11)[:2] == (10, 1)
     # 256 fits: one row of 64 groups, two passes of 32.
-    assert sw.sweep_plan(256, 11)[:2] == (32, 64)
+    assert sw.sweep_plan(256, 11)[:2] == (64, 1)
 
 
 def test_sweep_plan_splits_deep_masks_over_grid_rows():
-    # The largest published genome count (W = 157: 40 steps, 10 chunks of
-    # 16 bytes a lane) x 256 fits: 64 groups of 5184 bytes pass the budget,
-    # so rows of 8 groups, one pass each.
-    gpp, gpr, smem = sw.sweep_plan(256, 157)
-    assert (gpp, gpr) == (8, 8)
-    assert smem == 8 * (10 * 512 + 64) + 8 * 256 == sw._smem_bytes(157, 8)
-    assert smem <= sw._SMEM_BUDGET
-    # Past 512 genomes (16 words) the deep build keeps 8 groups a pass.
-    assert sw.sweep_plan(4, 16)[0] == 32 and sw.sweep_plan(4, 17)[0] == 8
+    # The largest published genome count (W = 157: 20 k256 steps, 5,120
+    # bytes of B a group) x 120 fits, the exact engine's launch: all 30
+    # groups in one block beside a ring of 8 stages of 8 KB, one grid row:
+    # the matrix is read once a launch.
+    gpr, rows, smem = sw.sweep_plan(120, 157)
+    assert (gpr, rows) == (30, 1)
+    assert smem == 30 * (20 * 256 + 64) + 8 * (8192 + 16)
+    assert smem == sw._smem_bytes(157, 30) <= sw._SMEM_MAX
+    # 256 fits (64 groups) pass the 32 a block keeps: two grid rows.
+    assert sw.sweep_plan(256, 157)[:2] == (32, 2)
+    # 10,000 genomes (W = 313: 10,304 bytes a group): 120 fits over 2 rows
+    # of 15 groups, 200 fits over 3 of 17; the ring keeps at least two
+    # stages.
+    assert sw.sweep_plan(120, 313)[:2] == (15, 2)
+    assert sw.sweep_plan(200, 313)[:2] == (17, 3)
+    assert sw._deep_group_bytes(313) == 10304
+    ring = sw._smem_bytes(313, 17) - 17 * sw._deep_group_bytes(313)
+    assert ring >= sw._MIN_STAGES * sw._STAGE_BYTES
+    # Past 512 genomes (16 words) the deep build; a block keeps at most 32
+    # groups, 4 a consumer warp, as a shallow pass keeps in registers.
+    assert not sw._deep(16) and sw._deep(17)
+    assert sw.sweep_plan(4, 16) == (1, 1, 512 + 64 + 32 * 256)
+    assert sw.sweep_plan(4, 17) == (1, 1, 3 * 256 + 64 + 8 * (8192 + 16))
+    # One group a block at 5,000 words: a grid row each.
+    assert sw.sweep_plan(4 * 2000, 5000)[:2] == (1, 2000)
+
+
+@pytest.mark.parametrize("w", [17, 32, 33, 157, 313])
+@pytest.mark.parametrize("f", [1, 5, 120, 200])
+def test_deep_staging_equals_popcount_colsum(f, w):
+    """The deep build's counts, from the ring's swizzled stages (garbage
+    where the producer writes nothing), equal the plain counts over every
+    live column, at depths that leave a partial stage or half a k256 step,
+    and fit counts that fill a block, several grid rows or neither."""
+    seed = 7 * f + w
+    k, block = 150, 128  # a full and a partial block; a partial tile each
+    neg, pos = _words((f, w), seed), _words((f, w), seed + 1)
+    matrix = _words((w, k), seed + 2)
+    packed = tiles.pack_mask_tiles(torch.stack([neg, pos], 1))
+    cn, cp = _deep_counts(matrix, packed, f, k, block, seed)
+    assert np.array_equal(cn, popcount_colsum_plain(matrix, neg).numpy())
+    assert np.array_equal(cp, popcount_colsum_plain(matrix, pos).numpy())
+
+
+@pytest.mark.parametrize("excl_on", [False, True])
+@pytest.mark.parametrize("epi", ["argmax", "sbmax"])
+@pytest.mark.parametrize("f,w,block", [(5, 17, 256), (9, 33, 64),
+                                       (37, 20, 96)])
+def test_deep_epilogues_equal_the_plain_versions(f, w, block, epi, excl_on):
+    """The deep build's blocks, with the limit inside a tile and a k-mer
+    blacklist that bans rules alone and whole tiles, equal the plain
+    versions bit for bit."""
+    rng = np.random.RandomState(f + w + block)
+    k, limit = 300, 291
+    matrix = _words((w, k), f)
+    neg = _words((f, w), f + 1)
+    pos = torch.from_numpy(~neg.numpy() & _words((f, w), f + 2).numpy())
+    matrix[:, 7] = -1
+    matrix[:, 8] = 0
+    count = lambda m: torch.from_numpy(
+        _popc(m.numpy().view(np.uint32)).sum(1).astype(np.int32))
+    ps = torch.tensor([0.1, 0.178, 1.0, 999999.0, 0.5],
+                      dtype=torch.float32)[torch.arange(f) % 5]
+    excl = None
+    if excl_on:
+        excl = torch.from_numpy((rng.rand(2, k) < 0.3).astype(np.uint8))
+        excl[:, 64:80] = 1
+    args = (matrix, neg, pos, count(neg), count(pos), ps, limit, block, excl)
+    got = _kernel_blocks(epi, *args, deep=True)
+    if epi == "argmax":
+        want = sw.scm_sweep_argmax_blocks_plain(*args)
+        assert np.array_equal(got[0], want[0].numpy())
+        assert np.array_equal(got[1], want[1].numpy())
+    else:
+        assert np.array_equal(got, sw.scm_sweep_sbmax_plain(*args).numpy())
+
+
+def test_deep_stage_accesses_hit_32_banks():
+    """Every warp-wide shared-memory access of the ring hits 32 distinct
+    banks: the consumers' A fragment loads (each of a0..a3, each tile and
+    step of a stage) and the producer's writes of a row's 32 columns."""
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for s in range(STAGE_WORDS // 8):
+        for u in range(STAGE_TILES):
+            col = (16 * u + g) ^ (8 * t)
+            for row in (8 * s + t, 8 * s + 4 + t):
+                for c in (col, col ^ 8):
+                    assert len(set((row * STAGE_COLS + c) % 32)) == 32
+    for r in range(STAGE_WORDS):
+        for h in range(STAGE_COLS // 32):
+            addr = r * STAGE_COLS + ((32 * h + lane) ^ (8 * (r & 3)))
+            assert len(set(addr % 32)) == 32
+    # 16-byte copies: lane 16 h + q writes columns 4 q .. 4 q + 3 of row
+    # r0 + h, one aligned run of the row whatever the row (the swizzle
+    # moves runs of 4 whole), and each quarter warp's 8 runs cover 32 banks.
+    q, h = lane % 16, lane // 16
+    for r0 in range(0, STAGE_WORDS, 2):
+        r = r0 + h
+        base = (4 * q) ^ (8 * (r & 3))
+        for j in range(4):
+            assert np.array_equal((4 * q + j) ^ (8 * (r & 3)), base + j)
+        addr = r * STAGE_COLS + base
+        assert np.all(addr % 4 == 0)
+        for quarter in range(4):
+            runs = addr[8 * quarter:8 * quarter + 8]
+            assert len(set((runs // 4) % 8)) == 8
+
+
+def test_deep_emulation_mirrors_the_source():
+    """The deep build's constants and layouts above are csrc/scm_sweep.cu's,
+    and ops/scm_sweep.py's plan uses the same."""
+    src = SOURCE.read_text()
+    for line in ("constexpr int kDeepWarps = %d;" % DEEP_WARPS,
+                 "constexpr int kWarpGroups = %d;" % WARP_GROUPS,
+                 "constexpr int kStageTiles = %d;" % STAGE_TILES,
+                 "constexpr int kStageWords = %d;" % STAGE_WORDS,
+                 "constexpr int kMaxStages = %d;" % sw._MAX_STAGES,
+                 "constexpr int kMinStages = %d;" % sw._MIN_STAGES,
+                 "constexpr int kSmemMax = 227 * 1024;",
+                 "const int col = (u * kWarpCols + g) ^ (8 * t);",
+                 "((h * 32 + lane) ^ (8 * (r & 3)))",
+                 "((4 * q) ^ (8 * (r & 3)))",
+                 "const int q = lane & 15;", "const int r0 = lane >> 4;",
+                 "b_warp[i] = s_b + (size_t)(warp + kDeepWarps * min(i, gw - 1))"):
+        assert line in src, line
+    assert sw._DEEP_GROUPS == DEEP_WARPS * WARP_GROUPS
+    assert sw._STAGE_BYTES == STAGE_WORDS * STAGE_COLS * 4 + 2 * 8
+    assert re.search(r"mbar_init\(s_empty \+ s, n_active \* bmma::kLanes\)",
+                     src)
 
 
 def test_sweep_plan_rejects_masks_past_shared_memory():
