@@ -23,9 +23,9 @@ shards, one kernel launch a shard.
 from __future__ import annotations
 
 from collections import deque
-from copy import deepcopy
+from copy import copy
 from dataclasses import dataclass, field
-from math import ceil
+from math import ceil, isfinite
 
 import numpy as np
 
@@ -662,11 +662,42 @@ class DecisionTreeClassifier:
         return self.decision_tree is not None
 
 
+def copy_tree(root):
+    """A copy of the tree at ``root`` that pruning and readdressing may
+    change: new nodes and new rules; the nodes' example indices and
+    statistics, which nothing changes once the tree is grown, are shared.
+    It stands for ``deepcopy``, whose copies of every node's example
+    indices made :func:`prune_tree` quadratic in the tree's size (a copy a
+    pruning step)."""
+    top = copy(root)
+    stack = [top]
+    while stack:
+        node = stack.pop()
+        if node.rule is not None:
+            node.rule = copy(node.rule)
+        for side in ("left_child", "right_child"):
+            child = getattr(node, side)
+            if child is not None:
+                child = copy(child)
+                child.parent = node
+                setattr(node, side, child)
+                stack.append(child)
+    return top
+
+
+def _allclose(a, b):
+    """``np.allclose(a, b)`` for two float64 scalars, without numpy's array
+    set-up: within 1e-8 + 1e-5 |b| when both are finite, else equal."""
+    if isfinite(a) and isfinite(b):
+        return abs(a - b) <= 1e-08 + 1e-05 * abs(b)
+    return a == b
+
+
 def prune_tree(tree):
     """Minimal cost-complexity pruning -> (alphas, trees) (cart.py:362-470).
 
     Iterative implementations of the reference's recursive passes (no
-    recursion limits), with identical np.allclose comparisons.
+    recursion limits), with the reference's np.allclose comparisons.
     """
 
     def _get_leaf_parents(root):
@@ -687,7 +718,7 @@ def prune_tree(tree):
         parents = _get_leaf_parents(root)
         while parents:
             node = parents.pop()
-            if np.allclose(
+            if _allclose(
                 node.breiman_info.R_t,
                 node.left_child.breiman_info.R_t + node.right_child.breiman_info.R_t,
             ):
@@ -710,29 +741,29 @@ def prune_tree(tree):
         left_min_gt, left_links = _find_weakest_links(node.left_child)
         right_min_gt, right_links = _find_weakest_links(node.right_child)
 
-        if np.allclose(current_gt, min(left_min_gt, right_min_gt)):
-            if np.allclose(left_min_gt, right_min_gt):
+        if _allclose(current_gt, min(left_min_gt, right_min_gt)):
+            if _allclose(left_min_gt, right_min_gt):
                 return current_gt, [node] + left_links + right_links
             return current_gt, [node] + (
                 left_links if left_min_gt < right_min_gt else right_links
             )
         elif current_gt < min(left_min_gt, right_min_gt):
             return current_gt, [node]
-        elif np.allclose(left_min_gt, right_min_gt):
+        elif _allclose(left_min_gt, right_min_gt):
             return left_min_gt, left_links + right_links
         elif left_min_gt > right_min_gt:
             return right_min_gt, right_links
         else:
             return left_min_gt, left_links
 
-    tree = deepcopy(tree)
+    tree = copy_tree(tree)
     _initial_pruning(tree)
     T1 = tree
 
     sequence = [(0, T1)]
     current = T1
     while not current.is_leaf:
-        current = deepcopy(current)
+        current = copy_tree(current)
         min_gt, weakest_links = _find_weakest_links(current)
         for n in weakest_links:
             n.rule = None

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import logging
 from collections import defaultdict
-from copy import deepcopy
 from functools import partial
 from itertools import product
 from math import sqrt
@@ -37,6 +36,7 @@ from ...profiling import span, spanned
 from ..cart import (
     DecisionTreeClassifier,
     DeferredEquiv,
+    copy_tree,
     device_excl_from_blacklist,
     prune_tree,
 )
@@ -103,7 +103,7 @@ def _readdress_tree(tree, rule_new_idx_by_kmer_seq):
             _readdress(node.left_child, kmer_idx)
             _readdress(node.right_child, kmer_idx)
 
-    new_tree = deepcopy(tree)
+    new_tree = copy_tree(tree)
     _readdress(new_tree, rule_new_idx_by_kmer_seq)
     return new_tree
 
@@ -521,25 +521,31 @@ def train_tree(dataset, split_name, criterion, class_importance, max_depth,
     for hps, score, master_tree in results:
         n_completed += 1
         progress_callback(hp_search_type.title(), n_completed / n_hp)
-        if score < best_score:
-            best_hps = hps
-            best_score = score
-            best_master_tree = master_tree
-        elif np.isclose(score, best_score):
-            master_tree_length = len(master_tree)
-            best_master_tree_length = len(best_master_tree)
-            # Tie rules: smaller tree, then lower class-importance variance.
-            # NOTE (faithful quirk): like the reference
-            # (experiment_cart.py:480-484), the winning *tree* is not actually
-            # swapped in on tie — only the hps and score are updated.
-            if (master_tree_length < best_master_tree_length) or (
-                master_tree_length == best_master_tree_length
-                and np.var(list(hps["class_importance"].values()))
-                < np.var(list(best_hps["class_importance"].values()))
-            ):
+        # cart.select: this combination against the best so far; ``ties``
+        # is 1 where it tied the best under np.isclose.
+        with span("cart.select", ties=0) as rec:
+            if score < best_score:
                 best_hps = hps
-                best_master_tree = best_master_tree
                 best_score = score
+                best_master_tree = master_tree
+            elif np.isclose(score, best_score):
+                if rec:
+                    rec["ties"] = 1
+                master_tree_length = len(master_tree)
+                best_master_tree_length = len(best_master_tree)
+                # Tie rules: smaller tree, then lower class-importance
+                # variance. NOTE (faithful quirk): like the reference
+                # (experiment_cart.py:480-484), the winning *tree* is not
+                # actually swapped in on tie — only the hps and score are
+                # updated.
+                if (master_tree_length < best_master_tree_length) or (
+                    master_tree_length == best_master_tree_length
+                    and np.var(list(hps["class_importance"].values()))
+                    < np.var(list(best_hps["class_importance"].values()))
+                ):
+                    best_hps = hps
+                    best_master_tree = best_master_tree
+                    best_score = score
     return best_score, best_hps, best_master_tree
 
 

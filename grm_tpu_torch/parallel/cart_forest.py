@@ -24,7 +24,7 @@ from collections import defaultdict
 import numpy as np
 
 from ..learning.cart import ColumnFetchRequest, service_frontier_request
-from ..profiling import span, spanned
+from ..profiling import span
 from .cart_device import cart_frontier_splits_device
 from .cart_exact import cart_frontier_candidates
 
@@ -42,7 +42,13 @@ def _group_key(request):
             excl_key, request.exact)
 
 
-@spanned("cart.grow")
+def _combo_key(classifier):
+    """A tree's hyperparameter combination."""
+    return (classifier.criterion, classifier.max_depth,
+            classifier.min_samples_split,
+            tuple(sorted(classifier.class_importance.items())))
+
+
 def grow_trees_batched(jobs):
     """Grow many CART trees with batched frontier scoring.
 
@@ -57,7 +63,19 @@ def grow_trees_batched(jobs):
 
     On return every classifier's ``decision_tree`` is fitted, exactly as if
     each had been ``fit`` separately.
+
+    Its span ``cart.grow`` counts the forest's ``trees`` (the jobs) and
+    ``combos`` (their distinct hyperparameter combinations).
     """
+    with span("cart.grow") as rec:
+        if rec:
+            rec["trees"] = len(jobs)
+            rec["combos"] = len({_combo_key(c) for c, _ in jobs})
+        _grow(jobs)
+
+
+def _grow(jobs):
+    """The forest's rounds (:func:`grow_trees_batched`)."""
     gens = {}
     results = {}
     for t, (classifier, kwargs) in enumerate(jobs):

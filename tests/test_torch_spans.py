@@ -223,7 +223,8 @@ TREES = {
              ("cart.score", "cart.round"), ("cart.replay", "cart.score"),
              ("cart.finish", "cart.learn"), ("cart.predict", "cart.learn"),
              ("cart.prune", "cart.finish"), ("cart.folds", "cart.finish"),
-             ("cart.equiv", "cart.learn"), ("report.write", None)},
+             ("cart.equiv", "cart.learn"), ("cart.select", "cart.learn"),
+             ("report.write", None)},
     "ingest": {("ingest.build", None), ("ingest.pad", "ingest.build"),
                ("ingest.batch", "ingest.build"),
                ("ingest.merge", "ingest.build"),
@@ -274,6 +275,10 @@ def test_each_path_emits_its_span_tree(kind, artifact, genomes, tmp_path,
         assert all(1 <= r.counts["trees"] <= N_FOLDS + 1 for r in scored)
         (prune,) = _by_name(recs, "cart.prune")
         assert prune.counts["trees"] >= N_FOLDS + 1
+        (grow,) = _by_name(recs, "cart.grow")
+        assert grow.counts == {"trees": N_FOLDS + 1, "combos": 1}
+        (select,) = _by_name(recs, "cart.select")
+        assert select.counts == {"ties": 0}
     else:
         dm = extra
         pads = _by_name(recs, "ingest.pad")
