@@ -42,14 +42,15 @@
 //   col_tab: atomicMin of k: the lowest column of the key (identity
 //            tiebreak); INT_MAX = absent.
 // Max and min do not depend on the order of the updates, so the tables are
-// deterministic. The lanes of a warp that hit one entry agree on it
-// (__match_any_sync) and reduce their occurrences and columns, and one lane
-// updates. A node with a small lattice (the hot-key case: millions of
+// deterministic. Each lane that hits reads its entry and updates it only
+// where the read shows the update would change it (the tables only grow or
+// only shrink, so a stale read never skips a needed update): once a key's
+// entry holds its best columns, its further hits cost a read and no vote of
+// the warp. A node with a small lattice (the hot-key case: millions of
 // columns on a few keys) folds into a private copy of its tables in the
 // block's shared memory, merged into the global tables once per block with
-// the same max and min; the other nodes update the global tables, and only
-// where a read through L2 shows the update would change them (the tables
-// only grow or only shrink, so a stale read never skips a needed update).
+// the same max and min; the other nodes read through L2 and update the
+// global tables.
 //
 // cart_exact_select_kernel, the counting launch of the compaction. Gather
 // mode: a valid column with both children non-empty and score <= thresh
@@ -94,7 +95,9 @@
 // the ballots, so the loads and the issue of those few instructions bound
 // the sweep; gather mode still scores every (node, column) directly on the
 // special-function pipe. The writing launch moves the hit words and the
-// output; the hot-key folds cost shared-memory atomics.
+// output. Where the columns that hit run to millions a launch (the GUI
+// grid's frontiers of hundreds of nodes at 5022 genomes), the reads of
+// their entries bound the tuples sweep, not the matrix's stream.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
@@ -312,6 +315,8 @@ __device__ __forceinline__ void exact_sweep(const Params& p) {
     const int node = j * kGroupNodes + t;
     const bool live = node < nc;
     bool hit[2];
+    int keys[2];
+    int occs[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int left[C];
@@ -353,36 +358,40 @@ __device__ __forceinline__ void exact_sweep(const Params& p) {
         }
       }
       hit[h] = ok;
-      if (MODE == kTuples && __any_sync(kFull, ok)) {
-        // The lanes that hit one table entry, reduced to one update.
-        const int po = live ? s_poff[node] : -1;
-        const unsigned tag =
-            !ok ? 0xFFFFFFFFu
-                : po >= 0 ? 0x80000000u | (unsigned)(po + key)
-                          : (unsigned)(s_aux[node] + key);
-        const unsigned grp = __match_any_sync(kFull, tag);
-        if (ok) {
-          const unsigned col = (unsigned)(h ? k1 : k0);
-          const unsigned om = __reduce_max_sync(grp, (unsigned)occ);
-          const unsigned cm = __reduce_min_sync(
-              grp, (unsigned)occ == om ? col : 0xFFFFFFFFu);
-          const unsigned ca = __reduce_min_sync(grp, col);
-          if (lane == __ffs(grp) - 1) {
-            const unsigned long long v =
-                ((unsigned long long)(om + 1u) << 32) | (0xFFFFFFFFu - cm);
-            if (po >= 0) {
-              const int i = po + key;
-              if (s_pocc[i] < v) atomicMax(s_pocc + i, v);
-              if (s_pcol[i] > (int32_t)ca) atomicMin(s_pcol + i, (int32_t)ca);
-            } else {
-              const unsigned e = (unsigned)(s_aux[node] + key);
-              unsigned long long* a = p.occ_tab + e;
-              if (__ldcg(a) < v) atomicMax(a, v);
-              int32_t* b = p.col_tab + e;
-              if (__ldcg(b) > (int32_t)ca) atomicMin(b, (int32_t)ca);
-            }
-          }
+      keys[h] = key;
+      occs[h] = occ;
+    }
+    if (MODE == kTuples && (hit[0] || hit[1])) {
+      // Each hitting lane's own update (top of the file). Both halves'
+      // entries are read before either is updated, through one address
+      // for both kinds of table (the node's private copy in shared memory,
+      // else the global one), so the two reads are in flight together.
+      const int po = s_poff[node];
+      unsigned long long* occ_row =
+          po >= 0 ? s_pocc + po : p.occ_tab + s_aux[node];
+      int32_t* col_row = po >= 0 ? s_pcol + po : p.col_tab + s_aux[node];
+      unsigned long long v[2];
+      unsigned long long seen_v[2];
+      int32_t seen_c[2];
+      int32_t col[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        col[h] = (int32_t)(h ? k1 : k0);
+        v[h] = ((unsigned long long)(occs[h] + 1u) << 32) |
+               (0xFFFFFFFFu - (unsigned)col[h]);
+        seen_v[h] = ~0ull;
+        seen_c[h] = INT_MIN;
+        if (hit[h]) {
+          seen_v[h] =
+              *reinterpret_cast<volatile unsigned long long*>(occ_row +
+                                                              keys[h]);
+          seen_c[h] = *reinterpret_cast<volatile int32_t*>(col_row + keys[h]);
         }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (seen_v[h] < v[h]) atomicMax(occ_row + keys[h], v[h]);
+        if (seen_c[h] > col[h]) atomicMin(col_row + keys[h], col[h]);
       }
     }
     if (MODE != kTuples) {

@@ -45,6 +45,8 @@ launches = {
     "cart_sweep": 0,
     "cart_exact_tuples": 0,
     "cart_exact_select": 0,
+    "cart_exact_deep": 0,  # either exact sweep past 512 genomes (16 words)
+    "cart_exact_matrix_reads": 0,  # the reads of the matrix their plans make
     "kmer_canon": 0,
     "build_columns": 0,
     "merge_columns": 0,

@@ -199,8 +199,10 @@ def exact_layout(mode, sizes, c, w):
     gather mode), ``bit_words`` (a grid row's bitmap words held in shared
     memory; 0 = read from global memory), ``priv_off`` ((N,) int32 offset of
     a node's private tables in its grid row; -1 = none), ``priv_entries``
-    (private entries a block holds) and ``smem`` (bytes of shared memory of
-    a block)."""
+    (private entries a block holds), ``smem`` (bytes of shared memory of
+    a block), ``deep`` (the masks past ``_REG_STEPS`` steps: each warp
+    stages a tile's A fragments in shared memory) and ``reads`` (grid rows:
+    each reads the matrix once)."""
     sizes = np.asarray(sizes, np.int64)
     n = len(sizes)
     c_inst, gpb, _ = exact_plan(mode, n, c, w)
@@ -230,7 +232,8 @@ def exact_layout(mode, sizes, c, w):
     return SimpleNamespace(
         c_inst=c_inst, gpb=gpb, bit_off=bit_off, bit_words=bit_words,
         priv_off=priv_off, priv_entries=priv_entries,
-        smem=_smem_bytes(mode, w, gpb, c_inst, bit_words, priv_entries))
+        smem=_smem_bytes(mode, w, gpb, c_inst, bit_words, priv_entries),
+        deep=_stage_bytes(w) > 0, reads=-(-n // rows))
 
 
 def lattice_sizes(n_node):
@@ -485,6 +488,18 @@ def _layout_args(lib, mode, sizes, c, w, dev):
     return lay
 
 
+def _count_launch(name, kind, lay, n, c):
+    """One call of wrapper ``name`` (``kind`` as ``exact_frontiers`` names
+    it) counted: its launch, its frontier, and, past ``_REG_STEPS`` steps of
+    depth, ``cart_exact_deep`` and the reads of the matrix its plan makes
+    (``cart_exact_matrix_reads``)."""
+    _build.launches[name] += 1
+    _build.exact_frontiers.append((kind, n, c))
+    if lay.deep:
+        _build.launches["cart_exact_deep"] += 1
+        _build.launches["cart_exact_matrix_reads"] += lay.reads
+
+
 def cart_exact_tuples(matrix, class_masks, train_masks, n_node, scale, thresh,
                       criterion, limit, excl=None):
     """The tuple tables of a frontier whose every node's count lattice is at
@@ -535,8 +550,7 @@ def cart_exact_tuples(matrix, class_masks, train_masks, n_node, scale, thresh,
             None if excl_c is None else excl_c.data_ptr(),
             occ_tab.data_ptr(), col_tab.data_ptr(), stream),
             "cart_exact_tuples")
-        _build.launches["cart_exact_tuples"] += 1
-        _build.exact_frontiers.append(("cart_exact_tuples", n, c))
+        _count_launch("cart_exact_tuples", "cart_exact_tuples", lay, n, c)
     return occ_tab, col_tab, table_off
 
 
@@ -687,6 +701,6 @@ def cart_exact_select(matrix, class_masks, train_masks, n_node, scale,
                 None if out_occ is None else out_occ.data_ptr(), total,
                 stream), "cart_exact_select")
         # One call of the wrapper: two CUDA launches, counted as one.
-        _build.launches["cart_exact_select"] += 1
-        _build.exact_frontiers.append(("cart_exact_select:" + mode, n, c))
+        _count_launch("cart_exact_select", "cart_exact_select:" + mode, lay,
+                      n, c)
     return starts, out_col, out_left, out_occ

@@ -23,6 +23,7 @@ import torch
 import jax.numpy as jnp
 from grm_tpu.parallel.cart_exact import _scores_f32, _thresh_from_gmin
 
+from grm_tpu_torch.ops import _build
 from grm_tpu_torch.ops import cart_exact as ce
 from grm_tpu_torch.ops.popcount import BitMatrix
 
@@ -222,6 +223,44 @@ def test_exact_layout_plans_bitmaps_and_private_tables():
             assert (used <= ce.PRIV_LATTICE).all()
             ends = priv[priv >= 0] + used
             assert (ends <= lay.priv_entries).all()
+
+
+@pytest.mark.parametrize("mode", ["tuples", "gather", "equiv"])
+@pytest.mark.parametrize("n,c,w,reads", [
+    # the cart cell's frontier and the grid's (246 nodes a round in the
+    # ledger, up to 290) at 5022 genomes: a read of the matrix a grid row
+    (15, 2, 157, 1), (246, 2, 157, 16), (290, 2, 157, 15), (290, 8, 157, 37)])
+def test_exact_layout_counts_its_reads_of_the_matrix(mode, n, c, w, reads):
+    """Past 16 words (the staged A slabs) the plan reads the matrix once a
+    grid row: the groups halve from all of a frontier's until a row's tiles
+    fit the block's budget."""
+    lay = ce.exact_layout(mode, np.full(n, 900), c, w)
+    assert lay.deep and lay.reads == reads
+    assert (lay.reads - 1) * 4 * lay.gpb < n <= lay.reads * 4 * lay.gpb
+    assert not ce.exact_layout(mode, np.full(n, 900), c, 11).deep
+
+
+def test_deep_launches_are_counted_with_their_matrix_reads():
+    """``launches["cart_exact_deep"]`` counts the launches past 16 words,
+    ``launches["cart_exact_matrix_reads"]`` the reads their plans make; a
+    launch of the register build adds to neither."""
+    _build.reset_launches()
+    try:
+        for n, w in ((246, 157), (15, 157), (290, 157), (246, 11)):
+            lay = ce.exact_layout("tuples", np.full(n, 900), 2, w)
+            ce._count_launch("cart_exact_tuples", "cart_exact_tuples", lay,
+                             n, 2)
+        lay = ce.exact_layout("equiv", np.full(290, 900), 2, 157)
+        ce._count_launch("cart_exact_select", "cart_exact_select:equiv", lay,
+                         290, 2)
+        assert _build.launches["cart_exact_tuples"] == 4
+        assert _build.launches["cart_exact_select"] == 1
+        assert _build.launches["cart_exact_deep"] == 4
+        assert _build.launches["cart_exact_matrix_reads"] == 16 + 1 + 15 + 15
+        assert list(_build.exact_frontiers)[-1] == (
+            "cart_exact_select:equiv", 290, 2)
+    finally:
+        _build.reset_launches()
 
 
 def test_pass_bitmap_rejects_what_the_kernel_does_not_take():

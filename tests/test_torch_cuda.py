@@ -566,6 +566,165 @@ def test_cart_exact_kernels_at_the_largest_genome_count_three_classes(
     _exact_case(cuda, 65, 3, 20001, criterion, False, 23, n_genomes=5022)
 
 
+def _grid_frontier(rng, n, c, n_genomes, gather):
+    """A frontier as the grid cell's rounds give the exact kernels at 5022
+    genomes, nodes of different trees in turn: one example a class (the
+    hot-key nodes, every column on a few keys, +inf thresholds), up to 30
+    and up to 100 examples a class (lattices a block keeps as private
+    tables, or whose bitmaps fit shared memory), up to S_MAX ** (1 / c)
+    (bitmaps read from global memory) and, with ``gather``, up to half the
+    genomes (past S_MAX: the gather regime). Returns (masks, train masks,
+    n_node, priors, totals, hot): ``hot`` marks the one-example nodes."""
+    w = -(-n_genomes // 32)
+    bits = np.uint32(1) << (31 - np.arange(n_genomes) % 32).astype(np.uint32)
+    most = int(round(ce.S_MAX ** (1.0 / c))) - 1
+    caps = [1, min(30, most), min(100, most), most]
+    if gather:
+        caps.append(n_genomes // c)
+    masks = np.zeros((n, c, w), np.uint32)
+    train = np.zeros((n, w), np.uint32)
+    for i in range(n):
+        cap = caps[i % len(caps)]
+        for ci in range(c):
+            m = 1 if cap == 1 else rng.randint(0, cap + 1)
+            rows = rng.choice(np.arange(ci, n_genomes, c), m, replace=False)
+            np.bitwise_or.at(masks[i, ci], rows // 32, bits[rows])
+        rows = np.where(rng.rand(n_genomes) < 0.7)[0]
+        np.bitwise_or.at(train[i], rows // 32, bits[rows])
+    n_node = np.unpackbits(masks.view(np.uint8), axis=2).sum(2).astype(
+        np.int32)
+    priors = (rng.rand(n, c) + 0.1).astype(np.float32)
+    totals = rng.randint(n_genomes // 2, n_genomes, size=(n, c)).astype(
+        np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return (t(masks.view(np.int32)), t(train.view(np.int32)), t(n_node),
+            t(priors), t(totals), np.arange(n) % len(caps) == 0)
+
+
+def _deep_case(cuda, n, c, k, criterion, excl_on, seed, n_genomes=5022,
+               modes=("tuples", "equiv", "gather"), limit=None):
+    """The deep build (past 512 genomes) against the plain versions, bit for
+    bit, on :func:`_grid_frontier`'s frontiers at the engine's thresholds
+    (+inf for the hot-key nodes): tuples and equiv over lattices within
+    S_MAX, gather with gather-regime nodes among them. Each call counts one
+    deep launch and its plan's reads of the matrix. Returns the layouts."""
+    from grm_tpu_torch.ops import _build
+    from grm_tpu_torch.parallel.cart_exact import _thresh_from_gmin
+
+    rng = np.random.RandomState(seed)
+    w = -(-n_genomes // 32)
+    matrix = _words(rng, (w, k)).to(cuda)
+    excl = None
+    if excl_on:
+        ex = (rng.rand(k) < 0.2).astype(np.uint8)
+        ex[4096 + 64:4096 + 192] = 1  # whole stages' columns banned
+        excl = torch.from_numpy(ex).to(cuda)
+    limit = k - 7 if limit is None else limit
+    layouts = {}
+
+    def counted(mode, sizes, call):
+        lay = ce.exact_layout(mode, sizes, c, w)
+        before = dict(_build.launches)
+        out = call()
+        assert lay.deep
+        assert _build.launches["cart_exact_deep"] - \
+            before["cart_exact_deep"] == 1
+        assert _build.launches["cart_exact_matrix_reads"] - \
+            before["cart_exact_matrix_reads"] == lay.reads
+        layouts[mode] = lay
+        return out
+
+    for gather in (False, True):
+        if (gather and "gather" not in modes) or (
+                not gather and not {"tuples", "equiv"} & set(modes)):
+            continue
+        masks, train, n_node, priors, totals, hot = [
+            x.to(cuda) if isinstance(x, torch.Tensor) else x
+            for x in _grid_frontier(rng, n, c, n_genomes, gather)]
+        scale = (priors / totals).contiguous()
+        _, gmin = cs.cart_frontier_scores_plain(matrix, masks, n_node, priors,
+                                                totals, criterion, limit,
+                                                excl=excl)
+        thresh = _thresh_from_gmin(gmin, float(c)).contiguous()
+        thresh[torch.from_numpy(hot).to(cuda)] = float("inf")
+        sizes = ce.lattice_sizes(n_node).cpu().numpy()
+        if not gather:
+            args = (matrix, masks, train, n_node, scale, thresh, criterion,
+                    limit, excl)
+            want = ce.cart_exact_tuples_plain(*args)
+            if "tuples" in modes:
+                got = counted("tuples", sizes,
+                              lambda: ce.cart_exact_tuples(*args))
+                for g, x in zip(got, want):
+                    _same(g, x)
+            assert int((want[0] != 0).sum()) > 0
+            if "equiv" in modes:
+                keys, occmax = smoke.winning_keys(ce.table_rows(*want), n)
+                kw = dict(occmax=occmax.to(cuda), excl=excl,
+                          bitmap=torch.from_numpy(ce.key_bitmap(keys)).to(
+                              cuda))
+                args = (matrix, masks, train, n_node, scale, "gini", limit,
+                        "equiv")
+                got = counted("equiv", sizes,
+                              lambda: ce.cart_exact_select(*args, **kw))
+                want = ce.cart_exact_select_plain(*args, **kw)
+                for g, x in zip(got[:2], want[:2]):
+                    _same(g, x)
+                assert int(want[0][-1]) > 0
+        else:
+            assert (sizes > ce.S_MAX).any()
+            args = (matrix, masks, train, n_node, scale, criterion, limit,
+                    "gather")
+            got = counted("gather", np.zeros(n, np.int64),
+                          lambda: ce.cart_exact_select(*args, thresh=thresh,
+                                                       excl=excl))
+            want = ce.cart_exact_select_plain(*args, thresh=thresh, excl=excl)
+            for g, x in zip(got, want):
+                _same(g, x)
+            assert int(want[0][-1]) > 0
+    return layouts
+
+
+# The grid cell's frontiers at 5022 genomes (W = 157): the cart cell's 15
+# nodes (one grid row), 97 (a short last row and group), 246 and 290 (the
+# grid's rounds); K a multiple of the warp tile and not.
+DEEP_EXACT_CASES = [(n, k, criterion, excl_on)
+                    for n in (15, 97, 246, 290)
+                    for k in (20480, 20003)
+                    for criterion, excl_on in (("gini", False),
+                                               ("cross-entropy", True))]
+
+
+@pytest.mark.parametrize("n,k,criterion,excl_on", DEEP_EXACT_CASES)
+def test_cart_exact_deep_build(cuda, n, k, criterion, excl_on):
+    """The deep build of both exact kernels equals the plain versions in
+    all three modes: private-table hot-key nodes, bitmaps in shared and in
+    global memory, gather-regime nodes; a read of the matrix a grid row."""
+    lays = _deep_case(cuda, n, 2, k, criterion, excl_on, n + k)
+    for lay in lays.values():
+        assert (lay.reads - 1) * lay.gpb * 4 < n <= lay.reads * lay.gpb * 4
+    assert lays["tuples"].priv_entries > 0
+    if n == 15:  # one block: its bitmaps in shared memory
+        assert lays["tuples"].bit_words > 0 and lays["equiv"].bit_words > 0
+
+
+@pytest.mark.parametrize("c", [3, 8])
+def test_cart_exact_deep_build_more_classes(cuda, c):
+    """Three and eight classes at 5022 genomes: at C = 8, fewer groups a
+    grid row."""
+    n = 290 if c == 8 else 246
+    lays = _deep_case(cuda, n, c, 9000, "gini", True, c)
+    assert lays["gather"].reads == -(-n // (4 * lays["gather"].gpb))
+
+
+@pytest.mark.parametrize("mode", ["tuples", "equiv", "gather"])
+def test_cart_exact_deep_build_at_a_streamed_chunks_width(cuda, mode):
+    """The streamed exact engine launches a chunk at a time: 40 nodes over
+    one chunk of 2^21 columns, the last 1,000 past the k-mers."""
+    _deep_case(cuda, 40, 2, 1 << 21, "gini", True, 21, modes=(mode,),
+               limit=(1 << 21) - 1000)
+
+
 @pytest.mark.parametrize("criterion", cs.CRITERIA)
 @pytest.mark.parametrize("case", range(len(smoke.BITMAP_CASES)))
 def test_pass_bitmap_kernel(cuda, case, criterion):
